@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-1. Builds the stage-2 CUDA kernel from ``colbert_torch/csrc/`` (nvcc,
+1. Builds both CUDA kernels from ``colbert_torch/csrc/`` (stage-2
+   decompress+MaxSim and flash attention; one nvcc each, started together,
    sm_90a) and prints the build time and ptxas resource lines.
 2. Holds the kernel against its plain PyTorch version on the card at the
    serving path's stage-2 shapes (B=32, Lq=32, NC=1024, Ld=160, dim=128,
@@ -18,7 +19,30 @@
    (pids equal up to ties, scores to 1e-4). On that batch's own stage-2
    inputs it times the kernel and the plain version in turns (plain,
    kernel, kernel, plain) with CUDA events, beside the bound.
-4. Prints the card's name and power limit, a ``kernels`` JSON line, and as
+4. ``[flash]``: holds the flash-attention kernel against its plain version
+   (the materialized fp32 softmax) at the CPU tests' cases and at the build
+   path's shape (B=128, H=12, S=512, hd=64, the pad bias of a real corpus
+   batch): fp32 inputs to 1e-4, bf16 inputs within 8e-3 * max(1, |plain|)
+   (one bf16 rounding step) against the plain version on their fp32
+   upcast. Times kernel and plain version in turns at the path's shape in
+   bf16, beside the bound and ``scaled_dot_product_attention`` with the same
+   additive mask (a yardstick the port never calls). In situ, bert-base
+   hidden states of one 128-passage corpus batch at S=512 in fp32 with the
+   kernel vs the materialized attention, to 5e-4 (the JAX package's own
+   bound); the same in bf16 is printed without a limit.
+5. ``[build]``: ``Indexer.index`` builds a 20,000-passage long-document
+   index (~450 words, padded to S=512) at bert-base width with bf16
+   activations, the flash-routed configuration of ``bench.py``'s flash
+   probe: sample encode, k-means, five chunks of fused encode+compress,
+   IVF. Prints the phases, passages per second and the plan; checks the
+   artifacts and that the flash kernel ran 12 times (once per layer) for
+   every encoded batch. Profiles one fused encode+compress batch and one
+   Lloyd pass at the build's partition count.
+6. ``[build-search]``: ``Searcher`` answers two 32-query batches over the
+   built index (each query the first 40 words of a passage) through the
+   stage-2 kernel; prints the top-1 self-retrieval rate (random weights:
+   information only).
+7. Prints the card's name and power limit, a ``kernels`` JSON line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. Without a GPU, or outside
@@ -33,16 +57,21 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TOL = 1e-4
 PEAK_FP32_FLOPS = 67e12     # H100 SXM, fp32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12    # H100 SXM, bf16 tensor cores, dense
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 N_PASSAGES = 141_431
 BATCH = 32
 N_BATCHES = 3
+BUILD_PASSAGES = 20_000
+BUILD_MEAN_WORDS = 450
+IN_SITU_TOL = 5e-4          # tests/test_flash_attention.py:72
 
 
 class SmokeFailure(Exception):
@@ -316,24 +345,30 @@ def main_path(device, *, n_passages: int, bert_cfg, index_dir: str,
     check(why is None, f"kernel vs plain stage-2 on the main path: {why}")
     timing = time_stage2(recorded["args"], recorded["kw"]) if device.type == "cuda" else {}
     return dict(qps=qps, stream_qps=batch * n_batches / dt_stream,
-                launches=launches, stages_ms=stages, rescore_err=err, **timing)
+                launches=launches, stages_ms=stages, rescore_err=err, encoder=enc,
+                **timing)
 
 
-def profile_batch(searcher, queries) -> dict:
-    """One untraced ``search_batch`` under ``torch.profiler``: device time
-    by operation (top 10, ms) and the device's busy share of the batch's
-    wall time (both under the profiler's own overhead)."""
+def device_profile(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: device time by kernel
+    (top 10, ms) and the device's busy share of the call's wall time (both
+    under the profiler's own overhead). Only device-side events (kernels,
+    copies) are summed: a host-side operator's device time is that of the
+    kernels it launched, which are listed themselves."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        searcher.search_batch(queries, k=10)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
     for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0.0)
@@ -344,6 +379,270 @@ def profile_batch(searcher, queries) -> dict:
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
                 busy_share=busy_ms / wall_ms if busy_ms else "not measured",
                 top=[dict(ms=ms, calls=n, op=name) for ms, n, name in rows[:10]])
+
+
+def profile_batch(searcher, queries) -> dict:
+    """One untraced ``search_batch`` under the profiler."""
+    return device_profile(lambda: searcher.search_batch(queries, k=10))
+
+
+# ---------------------------------------------------------------------------
+# flash attention: kernel vs plain, timing, in situ
+# ---------------------------------------------------------------------------
+
+
+def build_corpus_encoder(model, device, cfg):
+    """The build path's encoder: the serving path's bert-base model over the
+    corpus vocabulary (``bench_vocab_tokenizer``) and the build config."""
+    from colbert_torch.models.encoder import ColBERTEncoder
+    from colbert_torch.utils.testing import bench_vocab_tokenizer
+
+    return ColBERTEncoder(model, bench_vocab_tokenizer(), cfg, device=device)
+
+
+def build_config(**kw):
+    """bench.py's flash-probe configuration (:111-114) with its build knobs
+    (:77): doc_maxlen 512, 128-wide buckets, flash from S=512."""
+    from colbert_torch.config import ColBERTConfig
+
+    return ColBERTConfig(dim=128, doc_maxlen=512, query_maxlen=32, index_bsize=128,
+                         length_bucket=128, use_pallas=True, flash_min_seqlen=512,
+                         nbits=2, kmeans_niters=4, chunksize=4096, **kw)
+
+
+def flash_inputs(rng, device, B, H, S, hd, dtype, mask=None):
+    import torch
+
+    q, k, v = (torch.from_numpy(rng.standard_normal((B * H, S, hd)).astype(np.float32))
+               .to(device, dtype) for _ in range(3))
+    if mask is None:
+        mask = np.ones((B, S), bool)
+        mask[1, S // 2:] = False
+        if S > 128:
+            mask[0, S - 128:] = False
+    bias = np.where(mask, 0.0, np.finfo(np.float32).min).astype(np.float32)
+    return q, k, v, torch.from_numpy(bias).to(device)
+
+
+def flash_bound_ms(B, H, S, hd, itemsize) -> tuple[float, str]:
+    """Least time at these shapes: 4*B*H*S^2*hd operations at the bf16
+    tensor-core peak vs q, k, v, o (and the bias) read or written once."""
+    t_ops = 4 * B * H * S * S * hd / PEAK_BF16_FLOPS * 1e3
+    t_bytes = (4 * B * H * S * hd * itemsize + B * S * 4) / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def flash_vs_plain(device, path_mask) -> dict:
+    """Every case within its tolerance -> errors and, at the path's shape in
+    bf16, kernel / plain / SDPA times beside the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from colbert_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(3)
+    B, S = path_mask.shape
+    cases = [(2, 3, 128, 32, torch.float32, None), (2, 3, 256, 32, torch.float32, None),
+             (4, 12, 512, 64, torch.float32, None), (4, 12, 512, 64, torch.bfloat16, None),
+             (2, 2, 256, 128, torch.bfloat16, None),
+             (B, 12, S, 64, torch.float32, path_mask), (B, 12, S, 64, torch.bfloat16, path_mask)]
+    worst = 0.0
+    for Bc, H, Sc, hd, dtype, mask in cases:
+        q, k, v, bias = flash_inputs(rng, device, Bc, H, Sc, hd, dtype, mask)
+        got = fa.flash_attention(q, k, v, bias, num_heads=H).float()
+        want = fa.flash_attention_plain(q.float(), k.float(), v.float(), bias, num_heads=H)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        max_err = float(err.max())
+        if dtype == torch.float32:
+            ok = max_err <= TOL
+        else:
+            ok = bool((err <= 8e-3 * want.abs().clamp(min=1.0)).all())
+        print(f"[flash] B={Bc} H={H} S={Sc} hd={hd} {str(dtype)[6:]} "
+              f"max_abs_err={max_err:.3e} within tolerance: {ok}")
+        check(np.isfinite(max_err) and ok, f"flash B={Bc} S={Sc} hd={hd} {dtype}: {max_err}")
+        worst = max(worst, max_err)
+        del got, want
+
+    q, k, v, bias = flash_inputs(rng, device, B, 12, S, 64, torch.bfloat16, path_mask)
+    kern = lambda: fa.flash_attention(q, k, v, bias, num_heads=12)  # noqa: E731
+    plain = lambda: fa.flash_attention_plain(q, k, v, bias, num_heads=12)  # noqa: E731
+    qs, ks, vs = (x.view(B, 12, S, 64) for x in (q, k, v))
+    mask4 = bias.view(B, 1, 1, S).to(torch.bfloat16)
+    sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask4)  # noqa: E731
+    p1 = time_ms(plain, 3)
+    k1 = time_ms(kern, 10)
+    k2 = time_ms(kern, 10)
+    p2 = time_ms(plain, 3)
+    lib = time_ms(sdpa, 10)
+    bound, by = flash_bound_ms(B, 12, S, 64, 2)
+    print(f"[flash] timing at the path's shape B={B} H=12 S={S} hd=64 bf16: "
+          f"kernel_ms={k1:.4f},{k2:.4f} plain_ms={p1:.4f},{p2:.4f} sdpa_ms={lib:.4f} "
+          f"bound_ms={bound:.4f} ({by})")
+    return dict(max_abs_err=worst, kernel_ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                library_ms=lib, bound_ms=bound, bound_by=by)
+
+
+def flash_in_situ(enc, batch) -> dict:
+    """bert-base on one real corpus batch: hidden states with the kernel vs
+    the materialized attention (fp32, limit IN_SITU_TOL over real tokens),
+    and the embeddings in bf16 (printed, no limit)."""
+    import torch
+
+    idx, ids, mask, keep = batch
+    ids_d, mask_d, keep_d = enc._put_batch(ids, mask, keep)
+    model = enc.model
+    with torch.no_grad():
+        a = model.bert(ids_d, mask_d, torch.float32, use_flash=True)
+        b = model.bert(ids_d, mask_d, torch.float32, use_flash=False)
+        err = float((a - b).abs()[mask_d].max())
+        del a, b
+        ea = model.forward_normalized(ids_d, mask_d, keep_d, dtype_name="bfloat16",
+                                      use_flash=True)
+        eb = model.forward_normalized(ids_d, mask_d, keep_d, dtype_name="bfloat16")
+        bf_err = float((ea - eb).abs()[keep_d].max())
+        cos = float((ea * eb).sum(-1)[keep_d].min())
+    print(f"[flash] in situ, bert-base hidden states B={ids.shape[0]} S={ids.shape[1]} "
+          f"fp32: max_abs_err={err:.3e} (limit {IN_SITU_TOL}); bf16 embeddings: "
+          f"max_abs_err={bf_err:.3e} min_cosine={cos:.6f}")
+    check(np.isfinite(err) and err <= IN_SITU_TOL, f"flash in situ: {err} > {IN_SITU_TOL}")
+    return dict(in_situ_err=err, in_situ_bf16_err=bf_err, in_situ_min_cos=cos)
+
+
+# ---------------------------------------------------------------------------
+# the build path, and a search of what it built
+# ---------------------------------------------------------------------------
+
+
+def build_path(enc, passages, index_dir: str) -> dict:
+    """``Indexer.index`` on ``passages``: phases, plan, artifact checks and
+    the flash launches against the encoded batches."""
+    import torch
+
+    from colbert_torch.indexing.builder import Indexer
+    from colbert_torch.ops import flash_attention as fa
+    from colbert_torch.storage import format as fmt
+
+    seen = {"batches": 0, "flash_batches": 0, "rows": 0}
+    doc_batches = enc._doc_batches
+
+    def counting(texts):
+        for item in doc_batches(texts):
+            seen["batches"] += 1
+            seen["flash_batches"] += enc._flash_for(item[1].shape[1])
+            seen["rows"] += item[1].size
+            yield item
+
+    enc._doc_batches = counting
+    shutil.rmtree(index_dir, ignore_errors=True)
+    dev = enc.device
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    try:
+        Indexer(enc.config, encoder=enc, collection=passages, device=dev).index(index_dir)
+    finally:
+        enc._doc_batches = doc_batches
+    wall = time.perf_counter() - t0
+    launches = fa.flash_attention.launches
+    n = len(passages)
+    plan = fmt.load_plan(index_dir)
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    layers = enc.bert_config.num_hidden_layers
+    print(f"[build] {n} passages in {wall:.2f}s -> {n / wall:.2f} passages/s; phases "
+          + json.dumps(plan["timings"]))
+    print("[build] plan " + json.dumps({k: v for k, v in plan.items()
+                                         if k not in ("timings", "embedding_offsets")}))
+    print(f"[build] encoded batches {seen['batches']} (flash-routed "
+          f"{seen['flash_batches']}), padded token rows {seen['rows']}, flash kernel "
+          f"launches {launches} (expected {layers} x {seen['flash_batches']}); peak device "
+          f"memory {peak / 2**30:.2f} GiB")
+
+    check(plan["num_documents"] == n and fmt.check_all_files_saved(index_dir) == [],
+          "build: incomplete index")
+    doclens = fmt.load_all_doclens(index_dir)
+    codes = fmt.load_all_codes(index_dir)
+    codec = fmt.load_codec(index_dir)
+    K, dim = codec["centroids"].shape
+    check(len(doclens) == n and int(doclens.sum()) == plan["num_embeddings"] == len(codes),
+          "build: doclens, codes and plan disagree")
+    check(bool((codes < K).all()) and K == plan["num_partitions"], "build: codes out of range")
+    check(bool(np.isfinite(codec["centroids"]).all())
+          and bool((np.diff(codec["bucket_cutoffs"]) >= 0).all()), "build: bad codec")
+    check(fmt.load_all_residuals(index_dir).shape == (len(codes), dim // 8 * enc.config.nbits),
+          "build: residual shape")
+    if dev.type == "cuda":
+        check(seen["flash_batches"] == seen["batches"] > 0, "build: a batch missed flash")
+        check(launches >= layers * seen["flash_batches"] > 0,
+              f"build: {launches} flash launches for {seen['flash_batches']} batches")
+    return dict(build_seconds=wall, passages_per_s=n / wall, timings=plan["timings"],
+                flash_launches=launches, encoded_batches=seen["batches"],
+                num_partitions=plan["num_partitions"], num_embeddings=plan["num_embeddings"])
+
+
+def profile_build_steps(enc, batch, index_dir: str) -> None:
+    """Profiles of the build's two device-heavy steps: one fused
+    encode+compress batch (B=128, S=512) against the built codec, and one
+    Lloyd pass of the codec trainer at the build's partition count over
+    one million sample-like bf16 rows."""
+    import torch
+
+    from colbert_torch.models.encoder import _take_rows
+    from colbert_torch.ops import kmeans
+    from colbert_torch.storage import format as fmt
+
+    codec = fmt.load_codec(index_dir)
+    cent = torch.from_numpy(codec["centroids"]).to(enc.device)
+    cut = torch.from_numpy(codec["bucket_cutoffs"]).to(enc.device)
+    _, ids, mask, keep = batch
+    take, _ = _take_rows(keep)
+    args = enc._put_batch(ids, mask, keep, take)
+
+    def encode_compress():
+        with torch.no_grad():
+            enc.model.encode_compress_compact_batch(
+                *args[:3], cent, cut, args[3], dtype_name=enc.config.activation_dtype,
+                nbits=enc.config.nbits, use_flash=enc._flash_for(ids.shape[1]))
+
+    encode_compress()
+    print("[profile] encode+compress batch " + json.dumps(device_profile(encode_compress)))
+    g = torch.Generator(device=enc.device).manual_seed(0)
+    rows = torch.randn((1 << 20, cent.shape[1]), generator=g, device=enc.device)
+    rows = torch.nn.functional.normalize(rows, dim=-1).to(torch.bfloat16)
+    step = lambda: kmeans.lloyd_step(rows, cent, k=cent.shape[0])  # noqa: E731
+    step()
+    print(f"[profile] Lloyd pass, {rows.shape[0]} rows, k={cent.shape[0]} "
+          + json.dumps(device_profile(step)))
+
+
+def build_search(enc, passages, index_dir: str, *, batch: int = BATCH) -> dict:
+    """Two query batches over the built index: shapes, pid range, finite and
+    descending scores, stage-2 launches; top-1 self-retrieval (printed)."""
+    from colbert_torch.ops import fused_maxsim as fm
+    from colbert_torch.retrieval.searcher import Searcher
+
+    searcher = Searcher(index_dir, encoder=enc, device=enc.device)
+    rng = np.random.default_rng(5)
+    pids = rng.choice(len(passages), size=2 * batch, replace=False)
+    queries = [" ".join(passages[p].split()[:40]) for p in pids]
+    fm.stage2_maxsim.launches = 0
+    results = [searcher.search_batch(queries[i:i + batch], k=10)
+               for i in range(0, 2 * batch, batch)]
+    launches = fm.stage2_maxsim.launches
+    hits = 0
+    for i, (p, s) in enumerate(results):
+        check(p.shape == (batch, 10) and s.shape == (batch, 10), "build-search: shape")
+        check(bool(((p >= 0) & (p < len(passages))).all()), "build-search: pids out of range")
+        check(bool(np.isfinite(s).all()), "build-search: non-finite scores")
+        check(bool((np.diff(s, axis=1) <= 1e-6).all()), "build-search: not descending")
+        hits += int((p[:, 0] == pids[i * batch:(i + 1) * batch]).sum())
+    print(f"[build-search] 2 x {batch} queries; stage-2 launches {launches}; top-1 "
+          f"self-retrieval {hits}/{2 * batch} (random weights: information only)")
+    if enc.device.type == "cuda":
+        check(launches > 0, "build-search: the stage-2 kernel was not launched")
+    return dict(search_launches=launches, self_top1=hits / (2 * batch))
 
 
 def card_line() -> str:
@@ -372,15 +671,21 @@ def main() -> int:
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
     from colbert_torch.models.bert import BertConfig
+    from colbert_torch.ops import flash_attention as fa
     from colbert_torch.ops import fused_maxsim as fm
     from colbert_torch.utils.build import BUILD_DIR
+    from colbert_torch.utils.testing import synthetic_passages
 
+    # one nvcc per kernel source, started together
     t0 = time.perf_counter()
-    log = fm.build_kernel()
-    print(f"[build] stage2_maxsim.cu built in {time.perf_counter() - t0:.1f}s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"[build] {line.strip()}")
+    kernels_src = {"stage2_maxsim.cu": fm.build_kernel, "flash_attention.cu": fa.build_kernel}
+    with ThreadPoolExecutor(len(kernels_src)) as ex:
+        logs = dict(zip(kernels_src, ex.map(lambda build: build(), kernels_src.values())))
+    print(f"[build] {', '.join(kernels_src)} built in {time.perf_counter() - t0:.1f}s")
+    for src, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"[build] {src}: {line.strip()}")
 
     max_err = kernel_vs_plain(device)
     index_dir = os.path.join(BUILD_DIR, "smoke_index")
@@ -391,8 +696,28 @@ def main() -> int:
         shutil.rmtree(index_dir, ignore_errors=True)
     check(mp["launches"] > 0, "the stage-2 kernel was not launched on the main path")
 
+    t0 = time.perf_counter()
+    passages = synthetic_passages(BUILD_PASSAGES, mean_words=BUILD_MEAN_WORDS)
+    enc = build_corpus_encoder(mp.pop("encoder").model, device, build_config())
+    first = next(enc._doc_batches(passages[:enc.config.index_bsize]))
+    print(f"[build] corpus of {len(passages)} passages made in "
+          f"{time.perf_counter() - t0:.1f}s; first batch {first[1].shape}, "
+          f"flash-routed {enc._flash_for(first[1].shape[1])}")
+    fl = flash_vs_plain(device, first[2])
+    fl.update(flash_in_situ(enc, first))
+
+    build_dir = os.path.join(BUILD_DIR, "smoke_build_index")
+    try:
+        bp = build_path(enc, passages, build_dir)
+        bs = build_search(enc, passages, build_dir)
+        profile_build_steps(enc, first, build_dir)
+    finally:
+        shutil.rmtree(build_dir, ignore_errors=True)
+
     print(json.dumps({"qps": mp["qps"], "stream_qps": mp["stream_qps"],
-                      "stages_ms": mp["stages_ms"]}))
+                      "stages_ms": mp["stages_ms"],
+                      "build_passages_per_s": bp["passages_per_s"],
+                      "build_phases": bp["timings"], "self_top1": bs["self_top1"]}))
     print(card_line())
     kernels = [dict(
         name="stage2_maxsim", route="cuda",
@@ -401,6 +726,13 @@ def main() -> int:
         launches=mp["launches"], max_abs_err=max(max_err, mp["stage2_err"]),
         ms=mp["kernel_ms"], kernel_ms=mp["kernel_ms"], plain_ms=mp["plain_ms"],
         bound_ms=mp["bound_ms"], bound_by=mp["bound_by"], library_ms=None,
+    ), dict(
+        name="flash_attention", route="cuda",
+        source="colbert_torch/csrc/flash_attention.cu",
+        replaces="colbert_tpu/ops/flash_attention.py:65",
+        launches=bp["flash_launches"], max_abs_err=fl["max_abs_err"],
+        ms=fl["kernel_ms"], kernel_ms=fl["kernel_ms"], plain_ms=fl["plain_ms"],
+        bound_ms=fl["bound_ms"], bound_by=fl["bound_by"], library_ms=fl["library_ms"],
     )]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

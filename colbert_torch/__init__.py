@@ -8,15 +8,18 @@ unless the caller passes ``device="cpu"``.
 
 Ported so far: the serving path ``Searcher.search_batch`` (query tokenize,
 BERT query encode, the device search funnel) with the stage-2 fused
-decompress+MaxSim CUDA kernel (``csrc/stage2_maxsim.cu``). See ROADMAP.md
-for what is still to come.
+decompress+MaxSim CUDA kernel (``csrc/stage2_maxsim.cu``), and the build
+path ``Indexer.index`` (sample encode, k-means and quantile codec training,
+fused doc encode+compress per chunk, IVF) whose doc encode routes attention
+through the flash-attention CUDA kernel (``csrc/flash_attention.cu``). See
+ROADMAP.md for what is still to come.
 """
 
 from colbert_torch.config import ColBERTConfig
 
 __version__ = "0.1.0"
 
-__all__ = ["ColBERTConfig", "Searcher", "search", "__version__"]
+__all__ = ["ColBERTConfig", "Indexer", "index", "Searcher", "search", "__version__"]
 
 
 def __getattr__(name):  # lazy: keep `import colbert_torch` light
@@ -24,4 +27,8 @@ def __getattr__(name):  # lazy: keep `import colbert_torch` light
         from colbert_torch.retrieval.searcher import Searcher, search
 
         return {"Searcher": Searcher, "search": search}[name]
+    if name in ("Indexer", "index"):
+        from colbert_torch.indexing.builder import Indexer, index
+
+        return {"Indexer": Indexer, "index": index}[name]
     raise AttributeError(f"module 'colbert_torch' has no attribute {name!r}")

@@ -6,7 +6,12 @@ on fp32 values, an additive attention-mask bias of ``finfo(float32).min``,
 and the materialized softmax attention of ``_attention(use_flash=False)``
 written out in torch ops (scores and the probability-weighted sum are
 accumulated in fp32 from the activation-dtype operands, as the JAX
-package's ``preferred_element_type=float32`` products are).
+package's ``preferred_element_type=float32`` products are). With
+``use_flash`` attention goes through
+:func:`colbert_torch.ops.flash_attention.flash_attention_bsh` (the CUDA
+kernel on the card, its plain version on the CPU) with the bias
+``mask_bias[:, 0, 0, :]``, as ``bert_encode(use_flash=True)`` routes it
+through the Pallas kernel.
 
 Parameter names follow the JAX pytree (``q``, ``k``, ``v``, ``attn_out``,
 ``attn_ln``, ``mlp_in``, ``mlp_out``, ``mlp_ln`` per layer); ``nn.Linear``
@@ -22,6 +27,8 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from colbert_torch.ops.flash_attention import flash_attention_bsh
 
 __all__ = ["BertConfig", "BertModel"]
 
@@ -90,9 +97,12 @@ class BertLayer(nn.Module):
         self.mlp_out = nn.Linear(I, H)
         self.mlp_ln = LayerNorm(H, cfg.layer_norm_eps)
 
-    def _attention(self, q, k, v, mask_bias):
+    def _attention(self, q, k, v, mask_bias, use_flash=False):
         B, S, H = q.shape
         hd = H // self.num_heads
+        if use_flash:
+            return flash_attention_bsh(q, k, v, mask_bias[:, 0, 0, :],
+                                       num_heads=self.num_heads)
 
         def split(x):  # (B, S, H) -> (B, heads, S, hd)
             return x.reshape(B, S, self.num_heads, hd).transpose(1, 2)
@@ -103,9 +113,10 @@ class BertLayer(nn.Module):
         out = torch.matmul(probs.float(), vh.float())
         return out.transpose(1, 2).reshape(B, S, H).to(q.dtype)
 
-    def forward(self, x: torch.Tensor, mask_bias: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask_bias: torch.Tensor,
+                use_flash: bool = False) -> torch.Tensor:
         attn = self._attention(_dense(self.q, x), _dense(self.k, x),
-                               _dense(self.v, x), mask_bias)
+                               _dense(self.v, x), mask_bias, use_flash)
         x = self.attn_ln(x + _dense(self.attn_out, attn))
         h = _activation(self.act, _dense(self.mlp_in, x).float()).to(x.dtype)
         return self.mlp_ln(x + _dense(self.mlp_out, h))
@@ -125,7 +136,8 @@ class BertModel(nn.Module):
         self.layers = nn.ModuleList(BertLayer(cfg) for _ in range(cfg.num_hidden_layers))
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-                dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                dtype: torch.dtype = torch.bfloat16, use_flash: bool = False,
+                ) -> torch.Tensor:
         B, S = input_ids.shape
         pos = torch.arange(S, device=input_ids.device)
         x = (self.word(input_ids) + self.position(pos)[None]
@@ -135,5 +147,5 @@ class BertModel(nn.Module):
         mask_bias = torch.where(attention_mask.bool(), 0.0, neg)
         mask_bias = mask_bias.to(torch.float32)[:, None, None, :]  # (B,1,1,S)
         for layer in self.layers:
-            x = layer(x, mask_bias)
+            x = layer(x, mask_bias, use_flash)
         return x

@@ -5,7 +5,11 @@ states (activation-dtype operands, fp32 accumulation), add the optional
 head bias, zero the positions outside ``keep_mask`` and L2-normalize with
 the norm clamped inside the sqrt. ``encode_batch`` adds the output-dtype
 conversion of the JAX ``encode_batch`` (a float dtype, or ``"int8"`` as
-``round(x * 127)``).
+``round(x * 127)``). ``use_flash`` routes BERT's attention through the
+flash-attention kernel. The doc-side batches of the build path fuse the
+forward with keep-row compaction (``encode_compact_batch``) and with the
+residual codec (``encode_compress_batch``, ``encode_compress_compact_batch``),
+so only kept rows, or only codes and packed residuals, leave the device.
 """
 
 from __future__ import annotations
@@ -17,8 +21,10 @@ import torch
 from torch import nn
 
 from colbert_torch.models.bert import BertConfig, BertModel
+from colbert_torch.ops import codec as codec_ops
 
-__all__ = ["ColBERT", "DTYPES", "from_jax_params", "init_colbert"]
+__all__ = ["ColBERT", "DTYPES", "from_jax_params", "init_colbert",
+           "skiplist_keep_mask", "compact_doc_embeddings"]
 
 DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
           "float32": torch.float32}
@@ -38,9 +44,10 @@ class ColBERT(nn.Module):
     def forward_normalized(
         self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
         keep_mask: torch.Tensor, *, dtype_name: str = "bfloat16",
+        use_flash: bool = False,
     ) -> torch.Tensor:
         """-> unit-norm fp32 embeddings ``(B, L, dim)``; dropped rows are 0."""
-        hidden = self.bert(input_ids, attention_mask, DTYPES[dtype_name])
+        hidden = self.bert(input_ids, attention_mask, DTYPES[dtype_name], use_flash)
         w = self.linear.weight.to(hidden.dtype)
         emb = torch.matmul(hidden.float(), w.float().t())
         if self.linear.bias is not None:
@@ -52,13 +59,84 @@ class ColBERT(nn.Module):
     def encode_batch(
         self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
         keep_mask: torch.Tensor, *, dtype_name: str = "bfloat16",
-        out_dtype_name: str = "float32",
+        out_dtype_name: str = "float32", use_flash: bool = False,
     ) -> torch.Tensor:
         emb = self.forward_normalized(input_ids, attention_mask, keep_mask,
-                                      dtype_name=dtype_name)
-        if out_dtype_name == "int8":
-            return torch.clamp(torch.round(emb * 127.0), -127, 127).to(torch.int8)
-        return emb.to(DTYPES[out_dtype_name])
+                                      dtype_name=dtype_name, use_flash=use_flash)
+        return _to_out_dtype(emb, out_dtype_name)
+
+    def encode_compact_batch(
+        self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+        keep_mask: torch.Tensor, take_idx: torch.Tensor, *,
+        dtype_name: str = "bfloat16", out_dtype_name: str = "float32",
+        use_flash: bool = False,
+    ) -> torch.Tensor:
+        """``encode_batch`` fused with keep-row compaction -> ``(M, dim)``:
+        ``take_idx`` holds the flat row-major positions of the kept tokens
+        in the ``(B*L)`` grid (padding slots repeat row 0; callers slice to
+        the real count)."""
+        emb = self.forward_normalized(input_ids, attention_mask, keep_mask,
+                                      dtype_name=dtype_name, use_flash=use_flash)
+        return _to_out_dtype(emb.reshape(-1, emb.shape[-1])[take_idx], out_dtype_name)
+
+    def encode_compress_batch(
+        self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+        keep_mask: torch.Tensor, centroids: torch.Tensor,
+        bucket_cutoffs: torch.Tensor, *, dtype_name: str = "bfloat16",
+        nbits: int = 2, use_flash: bool = False,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Doc forward + residual compression -> (codes ``(B, L)`` int32,
+        packed residuals ``(B, L, dim // 8 * nbits)`` uint8). Masked
+        positions get codes too; callers drop them by ``keep_mask``."""
+        emb = self.forward_normalized(input_ids, attention_mask, keep_mask,
+                                      dtype_name=dtype_name, use_flash=use_flash)
+        B, L, dim = emb.shape
+        codes, residuals = _compress(emb.reshape(B * L, dim), centroids,
+                                     bucket_cutoffs, nbits)
+        return codes.reshape(B, L), residuals.reshape(B, L, -1)
+
+    def encode_compress_compact_batch(
+        self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+        keep_mask: torch.Tensor, centroids: torch.Tensor,
+        bucket_cutoffs: torch.Tensor, take_idx: torch.Tensor, *,
+        dtype_name: str = "bfloat16", nbits: int = 2, use_flash: bool = False,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """``encode_compress_batch`` on the kept rows only (``take_idx`` as
+        in :meth:`encode_compact_batch`) -> (codes ``(M,)``, residuals
+        ``(M, dim // 8 * nbits)``): masked rows skip the codec too."""
+        emb = self.forward_normalized(input_ids, attention_mask, keep_mask,
+                                      dtype_name=dtype_name, use_flash=use_flash)
+        flat = emb.reshape(-1, emb.shape[-1])[take_idx]
+        return _compress(flat, centroids, bucket_cutoffs, nbits)
+
+
+def _to_out_dtype(emb: torch.Tensor, out_dtype_name: str) -> torch.Tensor:
+    """A float dtype, or ``"int8"`` as ``round(x * 127)`` (hosts divide by
+    127)."""
+    if out_dtype_name == "int8":
+        return torch.clamp(torch.round(emb * 127.0), -127, 127).to(torch.int8)
+    return emb.to(DTYPES[out_dtype_name])
+
+
+def _compress(flat, centroids, bucket_cutoffs, nbits):
+    codes = codec_ops.compress_into_codes(flat, centroids, bsize=1024)
+    residuals = codec_ops.compress_residuals(flat, centroids[codes.long()],
+                                             bucket_cutoffs, nbits=nbits)
+    return codes, residuals
+
+
+def skiplist_keep_mask(ids: np.ndarray, mask: np.ndarray, skiplist: list[int]) -> np.ndarray:
+    """Host-side keep mask: attended positions whose token id is not skipped."""
+    if not skiplist:
+        return mask.copy()
+    return mask & ~np.isin(ids, np.asarray(skiplist, dtype=ids.dtype))
+
+
+def compact_doc_embeddings(emb: np.ndarray, keep: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Drop masked token positions -> (flat ``(sum(doclens), dim)``,
+    doclens ``(B,)``) (reference embedding_utils.jl:195-205)."""
+    doclens = keep.sum(axis=1).astype(np.int64)
+    return np.ascontiguousarray(emb[keep]), doclens
 
 
 def init_colbert(cfg: BertConfig, dim: int = 128, *, generator: torch.Generator,

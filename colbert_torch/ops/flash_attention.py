@@ -1,0 +1,162 @@
+"""Flash attention for the BERT doc encoder: the CUDA kernel and its plain version.
+
+Replaces the TPU kernel ``colbert_tpu/ops/flash_attention.py::_flash_kernel``
+(wrapped by ``flash_attention``): non-causal multi-head attention with an
+online softmax,
+
+    out[b*H + h] = softmax(q k^T / sqrt(hd) + bias[b]) v,
+
+over ``q, k, v (B*H, S, hd)`` with an additive per-batch key bias ``(B, S)``
+f32 (0 for real tokens; BERT passes ``finfo(float32).min`` for pads). It
+accumulates in fp32 and casts the output to q's dtype.
+
+The kernel (``csrc/flash_attention.cu``) is CUDA C++ for ``sm_90a``, built
+with ``nvcc`` into ``colbert_torch/build/`` at first use and loaded with
+ctypes. At the build path's shape (S=512, hd=64, bf16) the work is 256
+FLOPs per byte of q, k, v and out, just under the H100's 295: its least
+time is set by the bytes, with the bf16 tensor-core time 14% below, so
+both bounds matter; this first version runs fp32 FMAs (the source note
+says how).
+It keeps the reference's ``S % 128 == 0`` check and raises otherwise: the
+encoder's strict length buckets guarantee it wherever attention is routed
+here. ``hd`` is a multiple of 8 up to 128; inputs are fp32, bf16 or fp16.
+
+:func:`flash_attention` takes the JAX layout. :func:`flash_attention_bsh`
+takes BertLayer's ``(B, S, H*hd)`` projections and returns that layout;
+the kernel reads them through strides, so no head transpose runs. Both
+reach the same kernel and count its launches in
+``flash_attention.launches``. CUDA tensors go through the kernel (or
+raise); CPU tensors through :func:`flash_attention_plain`, the
+materialized fp32 softmax of the same function. The two differ only on a
+batch row whose every key is a pad (the kernel writes 0 there, as the
+Pallas kernel does; the materialized softmax averages v), which BERT never
+produces: [CLS] is always a real token.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+import os
+import threading
+
+import torch
+
+from colbert_torch.utils.build import CSRC_DIR, compile_cuda
+
+__all__ = ["flash_attention", "flash_attention_bsh", "flash_attention_plain",
+           "build_kernel", "KERNEL_SOURCE"]
+
+KERNEL_SOURCE = os.path.join(CSRC_DIR, "flash_attention.cu")
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def build_kernel() -> str:
+    """Build (once per source change) and load the kernel library -> the
+    compiler's output ("" when the library was already up to date)."""
+    global _lib
+    with _lib_lock:
+        so, log = compile_cuda(KERNEL_SOURCE, "libflash_attention.so")
+        if _lib is None:
+            lib = ctypes.CDLL(so)
+            fn = lib.colbert_flash_attention
+            fn.restype = ctypes.c_int
+            fn.argtypes = (
+                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float]
+                + [ctypes.c_int64] * 6 + [ctypes.c_void_p]
+            )
+            _lib = lib
+        return log
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          bias: torch.Tensor, *, num_heads: int) -> torch.Tensor:
+    """The same function with the ``(B*H, S, S)`` scores materialized in
+    fp32 -> ``(B*H, S, hd)`` in q's dtype."""
+    BH, S, hd = q.shape
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(hd)
+    scores = scores + bias.float().repeat_interleave(num_heads, dim=0)[:, None, :]
+    probs = torch.softmax(scores, dim=-1)
+    return torch.matmul(probs, v.float()).to(q.dtype)
+
+
+def _check(q, k, v, bias, B, S, hd):
+    for name, t in (("k", k), ("v", v), ("bias", bias)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if k.shape != q.shape or v.shape != q.shape or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("q, k and v must share one shape and dtype")
+    if bias.shape != (B, S) or bias.dtype != torch.float32:
+        raise ValueError(f"bias must be ({B}, {S}) float32, got "
+                         f"{tuple(bias.shape)} {bias.dtype}")
+    if S % 128:
+        raise ValueError(f"S={S} must be a multiple of 128")
+    if hd % 8 or not 0 < hd <= 128:
+        raise ValueError(f"head dim {hd} must be a multiple of 8 up to 128")
+
+
+def _launch(q, k, v, bias, out, B, H, S, hd, in_strides, out_strides):
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"flash_attention takes fp32, bf16 or fp16, not {q.dtype}")
+    if _lib is None:
+        build_kernel()
+    bias = bias.contiguous()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _lib.colbert_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), _DTYPES[q.dtype], B, H, S, hd, 1.0 / math.sqrt(hd),
+            *in_strides, *out_strides, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed (code {rc})")
+    flash_attention.launches += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: torch.Tensor, *, num_heads: int) -> torch.Tensor:
+    """Attention over ``q, k, v (B*H, S, hd)`` with ``bias (B, S)`` f32 ->
+    ``(B*H, S, hd)`` in q's dtype. CUDA tensors go through the kernel; CPU
+    tensors through the plain version."""
+    BH, S, hd = q.shape
+    if BH % num_heads:
+        raise ValueError(f"B*H={BH} is not a multiple of num_heads={num_heads}")
+    B = BH // num_heads
+    _check(q, k, v, bias, B, S, hd)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, bias, num_heads=num_heads)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    strides = (num_heads * S * hd, S * hd, hd)
+    return _launch(q, k, v, bias, out, B, num_heads, S, hd, strides, strides)
+
+
+def flash_attention_bsh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        bias: torch.Tensor, *, num_heads: int) -> torch.Tensor:
+    """The same attention over BertLayer's projections ``(B, S, H*hd)``
+    -> ``(B, S, H*hd)``: the kernel reads head ``h`` of row ``s`` at
+    ``[b, s, h*hd:(h+1)*hd]`` through strides."""
+    B, S, Hd = q.shape
+    if Hd % num_heads:
+        raise ValueError(f"width {Hd} is not a multiple of num_heads={num_heads}")
+    hd = Hd // num_heads
+    _check(q, k, v, bias, B, S, hd)
+    if q.device.type == "cpu":
+        def split(x):  # (B, S, H*hd) -> (B*H, S, hd)
+            return x.reshape(B, S, num_heads, hd).transpose(1, 2).reshape(B * num_heads, S, hd)
+
+        out = flash_attention_plain(split(q), split(k), split(v), bias, num_heads=num_heads)
+        return out.reshape(B, num_heads, S, hd).transpose(1, 2).reshape(B, S, Hd)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    strides = (S * Hd, hd, Hd)
+    return _launch(q, k, v, bias, out, B, num_heads, S, hd, strides, strides)
+
+
+flash_attention.launches = 0

@@ -26,33 +26,20 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
 import threading
 
 import torch
 
 from colbert_torch.ops import codec
-from colbert_torch.utils.build import REPO_ROOT, compile_shared
+from colbert_torch.utils.build import CSRC_DIR, compile_cuda
 
 __all__ = ["stage2_maxsim", "stage2_maxsim_plain", "build_kernel", "KERNEL_SOURCE"]
 
 NEG = -1e30
-KERNEL_SOURCE = os.path.join(REPO_ROOT, "colbert_torch", "csrc", "stage2_maxsim.cu")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+KERNEL_SOURCE = os.path.join(CSRC_DIR, "stage2_maxsim.cu")
 
 _lib = None
 _lib_lock = threading.Lock()
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the stage-2 CUDA kernel cannot be built")
 
 
 def build_kernel() -> str:
@@ -60,8 +47,7 @@ def build_kernel() -> str:
     compiler's output ("" when the library was already up to date)."""
     global _lib
     with _lib_lock:
-        so, log = compile_shared([_nvcc()] + NVCC_FLAGS, KERNEL_SOURCE,
-                                 "libstage2_maxsim.so")
+        so, log = compile_cuda(KERNEL_SOURCE, "libstage2_maxsim.so")
         if _lib is None:
             lib = ctypes.CDLL(so)
             fn = lib.colbert_stage2_maxsim

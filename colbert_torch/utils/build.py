@@ -10,16 +10,36 @@ into place, so concurrent processes never load a half-written library.
 from __future__ import annotations
 
 import os
+import shutil
 import subprocess
 
 import torch
 
-__all__ = ["REPO_ROOT", "BUILD_DIR", "compile_shared", "resolve_device"]
+__all__ = ["REPO_ROOT", "BUILD_DIR", "compile_shared", "compile_cuda", "resolve_device"]
 
 REPO_ROOT = os.path.dirname(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 )
 BUILD_DIR = os.path.join(REPO_ROOT, "colbert_torch", "build")
+CSRC_DIR = os.path.join(REPO_ROOT, "colbert_torch", "csrc")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def compile_cuda(src: str, so_name: str) -> tuple[str, str]:
+    """``compile_shared`` for a CUDA source with a plain C interface:
+    ``nvcc`` for ``sm_90a`` with ptxas resource lines in the returned log."""
+    return compile_shared([_nvcc()] + NVCC_FLAGS, src, so_name)
 
 
 def compile_shared(cmd_prefix: list[str], src: str, so_name: str) -> tuple[str, str]:

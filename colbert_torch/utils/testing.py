@@ -4,7 +4,9 @@ A tiny vocab, synthetic passages, a random-weight encoder seeded from a
 ``torch.Generator``, and ``synthesize_index``, which writes a complete,
 loadable index with random but mutually consistent codec, chunks, IVF and
 plan, without any encoder (its random draws are numpy's, so the same seed
-writes the same index as the JAX package's function).
+writes the same index as the JAX package's function), and the long-document
+corpus of the build smoke run (``bench_vocab_tokenizer``,
+``synthetic_passages``: copies of ``bench.py``'s helpers).
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ from colbert_torch.models.colbert import init_colbert
 from colbert_torch.models.encoder import ColBERTEncoder
 from colbert_torch.tokenization.wordpiece import WordPieceTokenizer
 
-__all__ = ["make_vocab", "make_encoder", "synthetic_collection", "synthesize_index"]
+__all__ = ["make_vocab", "make_encoder", "synthetic_collection", "synthesize_index",
+           "bench_vocab_tokenizer", "synthetic_passages"]
 
 _SPECIALS = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "[unused0]", "[unused1]"]
 _BASE_WORDS = [
@@ -140,3 +143,52 @@ def synthetic_collection(n: int, seed: int = 0, words_per_doc: int = 12) -> list
         k = rng.integers(max(3, words_per_doc // 2), words_per_doc + 1)
         docs.append(" ".join(rng.choice(words, size=k)))
     return docs
+
+
+# -- the long-document corpus of the build smoke run (copies of bench.py's
+# corpus helpers; the strings they produce are identical) --
+
+N_TOPICS = 64
+TOPIC_VOCAB = 60  # words per topic (overlapping windows over the word list)
+
+
+def bench_vocab_tokenizer(n_words: int = 2000) -> WordPieceTokenizer:
+    """Specials, ``n_words`` words ``word00000, word00001, ...`` and the
+    punctuation: every corpus word is one token."""
+    specials = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "[unused0]", "[unused1]"]
+    words = [f"word{i:05d}" for i in range(n_words)]
+    vocab = {t: i for i, t in enumerate(specials + words + list("!,.?;:'\"()-"))}
+    return WordPieceTokenizer(vocab)
+
+
+def _topic_words(topic: int, n_words: int, n_topics: int = N_TOPICS) -> np.ndarray:
+    if n_topics <= N_TOPICS:
+        # overlapping sliding windows: adjacent topics share most words
+        start = (topic * (n_words - TOPIC_VOCAB)) // max(1, n_topics - 1)
+        return np.arange(start, start + TOPIC_VOCAB)
+    # many topics: random per-topic word sets keep topics distinct
+    return np.random.default_rng(100_000 + topic).choice(
+        n_words, size=TOPIC_VOCAB, replace=False
+    )
+
+
+def synthetic_passages(n: int, mean_words: int = 110, n_words: int = 2000,
+                       n_topics: int = N_TOPICS) -> list[str]:
+    """Topical corpus: each passage draws ~60% of its words from one of
+    ``n_topics`` vocabulary subsets and the rest from the whole vocabulary,
+    ``mean_words`` +- 30 words per passage, from a fixed seed."""
+    rng = np.random.default_rng(7)
+    topics = [_topic_words(t, n_words, n_topics) for t in range(n_topics)]
+    names = [f"word{i:05d}" for i in range(n_words)]
+    out = []
+    for i in range(n):
+        words = topics[i % n_topics]
+        k = int(rng.integers(mean_words - 30, mean_words + 30))
+        k_topic = int(k * 0.6)
+        ids = np.concatenate([
+            rng.choice(words, size=k_topic),
+            rng.integers(0, n_words, k - k_topic),
+        ])
+        rng.shuffle(ids)
+        out.append(" ".join([names[j] for j in ids.tolist()]))
+    return out

@@ -1,6 +1,9 @@
 """Tests that need an NVIDIA GPU: the stage-2 CUDA kernel vs its plain
 PyTorch version (TF32 off, tolerance 1e-4) on the cases of the CPU parity
-tests, and the device rules of the wrappers. Every test skips without a
+tests; the flash-attention kernel vs its plain version (fp32 inputs to
+1e-4; bf16 inputs within 8e-3 * max(1, |plain|), one bf16 rounding step of
+the output, against the plain version on the fp32 upcast of the same
+inputs); and the device rules of the wrappers. Every test skips without a
 GPU. This file imports no JAX; on a machine without JAX run it as
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -10,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from colbert_torch.ops import flash_attention as fa
 from colbert_torch.ops import fused_maxsim as fm
 
 from _torch_stage2_cases import CASES, port_args, stage2_case
@@ -74,3 +78,54 @@ def test_device_index_search_runs_the_kernel(cuda_device, tmp_path):
     assert fm.stage2_maxsim.launches == before + 1
     pc, sc = cpu.search_Q_batch(Q, **search)
     np.testing.assert_allclose(sg, sc, atol=TOL, rtol=0)
+
+
+def _flash_case(seed, B, H, S, hd, dtype, device):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B * H, S, hd)).astype(np.float32))
+               .to(device, dtype) for _ in range(3))
+    mask = np.ones((B, S), bool)
+    mask[1, S // 2:] = False
+    if S > 128:
+        mask[0, S - 128:] = False
+    bias = np.where(mask, 0.0, np.finfo(np.float32).min).astype(np.float32)
+    return q, k, v, torch.from_numpy(bias).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,S,hd,dtype", [
+    (2, 3, 128, 32, torch.float32), (2, 3, 256, 32, torch.float32),
+    (4, 12, 512, 64, torch.float32), (4, 12, 512, 64, torch.bfloat16),
+    (2, 2, 256, 8, torch.float32), (2, 2, 256, 128, torch.bfloat16),
+])
+def test_flash_kernel_matches_plain(cuda_device, B, H, S, hd, dtype):
+    q, k, v, bias = _flash_case(S + hd, B, H, S, hd, dtype, cuda_device)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, bias, num_heads=H)
+    want = fa.flash_attention_plain(q.float(), k.float(), v.float(), bias, num_heads=H)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    err = (got.float() - want).abs()
+    if dtype == torch.float32:
+        assert float(err.max()) <= TOL
+    else:
+        assert bool((err <= 8e-3 * want.abs().clamp(min=1.0)).all())
+
+
+@pytest.mark.cuda
+def test_flash_bsh_reads_the_same_kernel(cuda_device):
+    B, H, S, hd = 2, 3, 256, 32
+    q, k, v, bias = _flash_case(1, B, H, S, hd, torch.float32, cuda_device)
+
+    def to_bsh(x):
+        return x.reshape(B, H, S, hd).transpose(1, 2).reshape(B, S, H * hd).contiguous()
+
+    before = fa.flash_attention.launches
+    got = fa.flash_attention_bsh(to_bsh(q), to_bsh(k), to_bsh(v), bias, num_heads=H)
+    want = to_bsh(fa.flash_attention(q, k, v, bias, num_heads=H))
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 2
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        fa.flash_attention(q[:, :100], k[:, :100], v[:, :100], bias[:, :100], num_heads=H)
