@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py
 
-1. Builds both CUDA kernels from ``colbert_torch/csrc/`` (stage-2
+1. Builds both CUDA sources from ``colbert_torch/csrc/`` (stage-2
    decompress+MaxSim and flash attention; one nvcc each, started together,
-   sm_90a) and prints the build time and ptxas resource lines.
+   sm_90a) and prints the build time and ptxas's registers and spills per
+   kernel instantiation; the tensor-core flash kernel's bf16 hd=64
+   instantiation (the build path's) must not spill.
 2. Holds the kernel against its plain PyTorch version on the card at the
    serving path's stage-2 shapes (B=32, Lq=32, NC=1024, Ld=160, dim=128,
    nbits=2, K=32768) and at edge cases (nbits 1/4/8, byte words, zero
@@ -19,24 +21,30 @@
    (pids equal up to ties, scores to 1e-4). On that batch's own stage-2
    inputs it times the kernel and the plain version in turns (plain,
    kernel, kernel, plain) with CUDA events, beside the bound.
-4. ``[flash]``: holds the flash-attention kernel against its plain version
-   (the materialized fp32 softmax) at the CPU tests' cases and at the build
+4. ``[flash]``: holds both flash-attention kernels against their plain
+   version (the materialized fp32 softmax), each case checked to have run
+   the kernel its dtype and head dim select (``mma``, tensor cores, for
+   bf16/fp16 at hd 32/64/128; ``simt`` otherwise): the CPU tests' cases,
+   bf16 at hd 32/64/128 and fp16 at hd 64 at S 128/256/512, and the build
    path's shape (B=128, H=12, S=512, hd=64, the pad bias of a real corpus
-   batch): fp32 inputs to 1e-4, bf16 inputs within 8e-3 * max(1, |plain|)
-   (one bf16 rounding step) against the plain version on their fp32
-   upcast. Times kernel and plain version in turns at the path's shape in
-   bf16, beside the bound and ``scaled_dot_product_attention`` with the same
-   additive mask (a yardstick the port never calls). In situ, bert-base
-   hidden states of one 128-passage corpus batch at S=512 in fp32 with the
-   kernel vs the materialized attention, to 5e-4 (the JAX package's own
-   bound); the same in bf16 is printed without a limit.
+   batch) in fp32, bf16 and fp16: fp32 inputs to 1e-4, bf16/fp16 inputs
+   within 8e-3 * max(1, |plain|) (one bf16 rounding step) against the plain
+   version on their fp32 upcast. Times kernel and plain version in turns at
+   the path's shape in bf16, beside the bound and
+   ``scaled_dot_product_attention`` with the same additive mask (a
+   yardstick the port never calls); then, at B*S = 65,536 rows for S 128,
+   256 and 512, the kernel beside SDPA and BERT's materialized attention.
+   In situ, bert-base hidden states of one 128-passage corpus batch at
+   S=512 in fp32 (through the ``simt`` kernel) vs the materialized
+   attention, to 5e-4 (the JAX package's own bound); the embeddings in bf16
+   (through the ``mma`` kernel) to a minimum cosine of 0.999.
 5. ``[build]``: ``Indexer.index`` builds a 20,000-passage long-document
    index (~450 words, padded to S=512) at bert-base width with bf16
    activations, the flash-routed configuration of ``bench.py``'s flash
    probe: sample encode, k-means, five chunks of fused encode+compress,
    IVF. Prints the phases, passages per second and the plan; checks the
    artifacts and that the flash kernel ran 12 times (once per layer) for
-   every encoded batch. Profiles one fused encode+compress batch and one
+   every encoded batch, every launch through the ``mma`` kernel. Profiles one fused encode+compress batch and one
    Lloyd pass at the build's partition count.
 6. ``[build-search]``: ``Searcher`` answers two 32-query batches over the
    built index (each query the first 40 words of a passage) through the
@@ -72,6 +80,8 @@ N_BATCHES = 3
 BUILD_PASSAGES = 20_000
 BUILD_MEAN_WORDS = 450
 IN_SITU_TOL = 5e-4          # tests/test_flash_attention.py:72
+IN_SITU_MIN_COS = 0.999     # bf16 embeddings with vs without the kernel
+SWEEP_ROWS = 65_536         # B*S of each [flash] sweep shape
 
 
 class SmokeFailure(Exception):
@@ -442,23 +452,33 @@ def flash_vs_plain(device, path_mask) -> dict:
 
     rng = np.random.default_rng(3)
     B, S = path_mask.shape
-    cases = [(2, 3, 128, 32, torch.float32, None), (2, 3, 256, 32, torch.float32, None),
-             (4, 12, 512, 64, torch.float32, None), (4, 12, 512, 64, torch.bfloat16, None),
-             (2, 2, 256, 128, torch.bfloat16, None),
-             (B, 12, S, 64, torch.float32, path_mask), (B, 12, S, 64, torch.bfloat16, path_mask)]
+    bf16, fp16, fp32 = torch.bfloat16, torch.float16, torch.float32
+    cases = [(2, 3, 128, 32, fp32, None), (2, 3, 256, 32, fp32, None),
+             (4, 12, 512, 64, fp32, None), (4, 12, 512, 64, bf16, None),
+             (2, 2, 256, 128, bf16, None)]
+    cases += [(2, 4, Sc, hd, dtype, None) for Sc in (128, 256, 512)
+              for dtype, hd in ((bf16, 32), (bf16, 64), (bf16, 128), (fp16, 64))]
+    cases += [(2, 2, 128, 40, bf16, None),  # a head dim the mma kernel does not take
+              (B, 12, S, 64, fp32, path_mask), (B, 12, S, 64, bf16, path_mask),
+              (B, 12, S, 64, fp16, path_mask)]
     worst = 0.0
     for Bc, H, Sc, hd, dtype, mask in cases:
         q, k, v, bias = flash_inputs(rng, device, Bc, H, Sc, hd, dtype, mask)
+        variant = "simt" if dtype == fp32 or hd not in (32, 64, 128) else "mma"
+        before = dict(fa.flash_attention.variant_launches)
         got = fa.flash_attention(q, k, v, bias, num_heads=H).float()
         want = fa.flash_attention_plain(q.float(), k.float(), v.float(), bias, num_heads=H)
         torch.cuda.synchronize()
+        before[variant] += 1
+        check(fa.flash_attention.variant_launches == before,
+              f"flash B={Bc} S={Sc} hd={hd} {dtype}: not one {variant} launch")
         err = (got - want).abs()
         max_err = float(err.max())
-        if dtype == torch.float32:
+        if dtype == fp32:
             ok = max_err <= TOL
         else:
             ok = bool((err <= 8e-3 * want.abs().clamp(min=1.0)).all())
-        print(f"[flash] B={Bc} H={H} S={Sc} hd={hd} {str(dtype)[6:]} "
+        print(f"[flash] B={Bc} H={H} S={Sc} hd={hd} {str(dtype)[6:]} {variant} "
               f"max_abs_err={max_err:.3e} within tolerance: {ok}")
         check(np.isfinite(max_err) and ok, f"flash B={Bc} S={Sc} hd={hd} {dtype}: {max_err}")
         worst = max(worst, max_err)
@@ -479,8 +499,41 @@ def flash_vs_plain(device, path_mask) -> dict:
     print(f"[flash] timing at the path's shape B={B} H=12 S={S} hd=64 bf16: "
           f"kernel_ms={k1:.4f},{k2:.4f} plain_ms={p1:.4f},{p2:.4f} sdpa_ms={lib:.4f} "
           f"bound_ms={bound:.4f} ({by})")
+    del q, k, v, bias, qs, ks, vs, mask4
     return dict(max_abs_err=worst, kernel_ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
                 library_ms=lib, bound_ms=bound, bound_by=by)
+
+
+def flash_sweep(device, path_mask) -> None:
+    """At B*S = SWEEP_ROWS for S 128, 256 and 512 (bert-base heads, bf16,
+    the path's key lengths cut to S): the kernel beside SDPA with the same
+    mask and BERT's materialized attention on its (B, S, H*hd) layout."""
+    import torch
+    import torch.nn.functional as F
+
+    from colbert_torch.models.bert import BertConfig, BertLayer
+    from colbert_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(4)
+    layer = BertLayer(BertConfig())  # its attention has no weights; they stay on the host
+    lens = path_mask.sum(1)
+    for S in (128, 256, 512):
+        B = SWEEP_ROWS // S
+        mask = np.arange(S)[None] < np.resize(np.minimum(lens, S), B)[:, None]
+        q, k, v, bias = flash_inputs(rng, device, B, 12, S, 64, torch.bfloat16, mask)
+        qs, ks, vs = (x.view(B, 12, S, 64) for x in (q, k, v))
+        qb, kb, vb = (x.transpose(1, 2).reshape(B, S, 768) for x in (qs, ks, vs))
+        mask4 = bias.view(B, 1, 1, S)
+        kern = lambda: fa.flash_attention(q, k, v, bias, num_heads=12)  # noqa: E731
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qs, ks, vs, attn_mask=mask4.to(torch.bfloat16))
+        mat = lambda: layer._attention(qb, kb, vb, mask4)  # noqa: E731
+        k1, s1, m1 = time_ms(kern, 10), time_ms(sdpa, 10), time_ms(mat, 3)
+        k2 = time_ms(kern, 10)
+        bound, by = flash_bound_ms(B, 12, S, 64, 2)
+        print(f"[flash] sweep S={S} B={B} H=12 hd=64 bf16: kernel_ms={k1:.4f},{k2:.4f} "
+              f"sdpa_ms={s1:.4f} materialized_ms={m1:.4f} bound_ms={bound:.4f} ({by})")
+        del q, k, v, bias, qs, ks, vs, qb, kb, vb
 
 
 def flash_in_situ(enc, batch) -> dict:
@@ -489,23 +542,35 @@ def flash_in_situ(enc, batch) -> dict:
     and the embeddings in bf16 (printed, no limit)."""
     import torch
 
+    from colbert_torch.ops import flash_attention as fa
+
     idx, ids, mask, keep = batch
     ids_d, mask_d, keep_d = enc._put_batch(ids, mask, keep)
     model = enc.model
+    layers = enc.bert_config.num_hidden_layers
+    counts = fa.flash_attention.variant_launches
     with torch.no_grad():
+        before = dict(counts)
         a = model.bert(ids_d, mask_d, torch.float32, use_flash=True)
+        check(counts["simt"] - before["simt"] == layers and counts["mma"] == before["mma"],
+              "flash in situ: the fp32 encode did not run the simt kernel once per layer")
         b = model.bert(ids_d, mask_d, torch.float32, use_flash=False)
         err = float((a - b).abs()[mask_d].max())
         del a, b
+        before = dict(counts)
         ea = model.forward_normalized(ids_d, mask_d, keep_d, dtype_name="bfloat16",
                                       use_flash=True)
+        check(counts["mma"] - before["mma"] == layers and counts["simt"] == before["simt"],
+              "flash in situ: the bf16 encode did not run the mma kernel once per layer")
         eb = model.forward_normalized(ids_d, mask_d, keep_d, dtype_name="bfloat16")
         bf_err = float((ea - eb).abs()[keep_d].max())
         cos = float((ea * eb).sum(-1)[keep_d].min())
     print(f"[flash] in situ, bert-base hidden states B={ids.shape[0]} S={ids.shape[1]} "
-          f"fp32: max_abs_err={err:.3e} (limit {IN_SITU_TOL}); bf16 embeddings: "
-          f"max_abs_err={bf_err:.3e} min_cosine={cos:.6f}")
+          f"fp32 (simt): max_abs_err={err:.3e} (limit {IN_SITU_TOL}); bf16 embeddings (mma): "
+          f"max_abs_err={bf_err:.3e} min_cosine={cos:.6f} (limit {IN_SITU_MIN_COS})")
     check(np.isfinite(err) and err <= IN_SITU_TOL, f"flash in situ: {err} > {IN_SITU_TOL}")
+    check(np.isfinite(cos) and cos >= IN_SITU_MIN_COS,
+          f"flash in situ: bf16 min cosine {cos} < {IN_SITU_MIN_COS}")
     return dict(in_situ_err=err, in_situ_bf16_err=bf_err, in_situ_min_cos=cos)
 
 
@@ -540,6 +605,7 @@ def build_path(enc, passages, index_dir: str) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     fa.flash_attention.launches = 0
+    fa.flash_attention.variant_launches.update(mma=0, simt=0)
     t0 = time.perf_counter()
     try:
         Indexer(enc.config, encoder=enc, collection=passages, device=dev).index(index_dir)
@@ -547,6 +613,7 @@ def build_path(enc, passages, index_dir: str) -> dict:
         enc._doc_batches = doc_batches
     wall = time.perf_counter() - t0
     launches = fa.flash_attention.launches
+    by_variant = dict(fa.flash_attention.variant_launches)
     n = len(passages)
     plan = fmt.load_plan(index_dir)
     peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
@@ -557,7 +624,8 @@ def build_path(enc, passages, index_dir: str) -> dict:
                                          if k not in ("timings", "embedding_offsets")}))
     print(f"[build] encoded batches {seen['batches']} (flash-routed "
           f"{seen['flash_batches']}), padded token rows {seen['rows']}, flash kernel "
-          f"launches {launches} (expected {layers} x {seen['flash_batches']}); peak device "
+          f"launches {launches} (expected {layers} x {seen['flash_batches']}; by kernel "
+          f"{by_variant}); peak device "
           f"memory {peak / 2**30:.2f} GiB")
 
     check(plan["num_documents"] == n and fmt.check_all_files_saved(index_dir) == [],
@@ -577,6 +645,8 @@ def build_path(enc, passages, index_dir: str) -> dict:
         check(seen["flash_batches"] == seen["batches"] > 0, "build: a batch missed flash")
         check(launches >= layers * seen["flash_batches"] > 0,
               f"build: {launches} flash launches for {seen['flash_batches']} batches")
+        check(by_variant == {"mma": launches, "simt": 0},
+              f"build: flash launches by kernel {by_variant}, expected all mma")
     return dict(build_seconds=wall, passages_per_s=n / wall, timings=plan["timings"],
                 flash_launches=launches, encoded_batches=seen["batches"],
                 num_partitions=plan["num_partitions"], num_embeddings=plan["num_embeddings"])
@@ -645,6 +715,30 @@ def build_search(enc, passages, index_dir: str, *, batch: int = BATCH) -> dict:
     return dict(search_launches=launches, self_top1=hits / (2 * batch))
 
 
+def kernel_label(mangled: str) -> str:
+    """``flash_mma_kernel<bf16,64>`` for the mangled name of that
+    instantiation of one of the repo's kernels, else the name as it is."""
+    import re
+
+    m = re.search(r"\d+(flash_mma_kernel|flash_kernel|stage2_kernel)I(.+?)EEv", mangled)
+    if m is None:
+        return mangled
+    args = re.sub(r"Li(\d+)E", r",\1", m.group(2))
+    args = args.replace("13__nv_bfloat16", "bf16").replace("6__half", "fp16")
+    args = {"f": "fp32", "j": "uint32", "h": "uint8"}.get(args, args)
+    return f"{m.group(1)}<{args}>"
+
+
+def ptxas_resources(log: str) -> list[tuple[str, str, str]]:
+    """(kernel, stack and spill line, registers line) for each kernel in a
+    ``-Xptxas -v`` log."""
+    lines = [line.strip() for line in log.splitlines()]
+    return [(kernel_label(line.split()[-1]), lines[i + 1],
+             lines[i + 2].replace("ptxas info    : ", ""))
+            for i, line in enumerate(lines)
+            if "Function properties for" in line and i + 2 < len(lines)]
+
+
 def card_line() -> str:
     done = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -683,9 +777,12 @@ def main() -> int:
         logs = dict(zip(kernels_src, ex.map(lambda build: build(), kernels_src.values())))
     print(f"[build] {', '.join(kernels_src)} built in {time.perf_counter() - t0:.1f}s")
     for src, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"[build] {src}: {line.strip()}")
+        for name, spills, regs in ptxas_resources(log):
+            print(f"[build] {src}: {name}: {spills}; {regs}")
+    mma64 = [spills for name, spills, _ in ptxas_resources(logs["flash_attention.cu"])
+             if name == "flash_mma_kernel<bf16,64>"]
+    check(mma64 == ["0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"],
+          f"flash_mma_kernel<bf16,64>: ptxas reports {mma64}")
 
     max_err = kernel_vs_plain(device)
     index_dir = os.path.join(BUILD_DIR, "smoke_index")
@@ -704,6 +801,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f}s; first batch {first[1].shape}, "
           f"flash-routed {enc._flash_for(first[1].shape[1])}")
     fl = flash_vs_plain(device, first[2])
+    flash_sweep(device, first[2])
     fl.update(flash_in_situ(enc, first))
 
     build_dir = os.path.join(BUILD_DIR, "smoke_build_index")
@@ -727,7 +825,7 @@ def main() -> int:
         ms=mp["kernel_ms"], kernel_ms=mp["kernel_ms"], plain_ms=mp["plain_ms"],
         bound_ms=mp["bound_ms"], bound_by=mp["bound_by"], library_ms=None,
     ), dict(
-        name="flash_attention", route="cuda",
+        name="flash_attention", route="cuda", variant="mma.sync",
         source="colbert_torch/csrc/flash_attention.cu",
         replaces="colbert_tpu/ops/flash_attention.py:65",
         launches=bp["flash_launches"], max_abs_err=fl["max_abs_err"],

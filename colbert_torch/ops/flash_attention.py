@@ -1,4 +1,4 @@
-"""Flash attention for the BERT doc encoder: the CUDA kernel and its plain version.
+"""Flash attention for the BERT doc encoder: the CUDA kernels and their plain version.
 
 Replaces the TPU kernel ``colbert_tpu/ops/flash_attention.py::_flash_kernel``
 (wrapped by ``flash_attention``): non-causal multi-head attention with an
@@ -10,25 +10,31 @@ over ``q, k, v (B*H, S, hd)`` with an additive per-batch key bias ``(B, S)``
 f32 (0 for real tokens; BERT passes ``finfo(float32).min`` for pads). It
 accumulates in fp32 and casts the output to q's dtype.
 
-The kernel (``csrc/flash_attention.cu``) is CUDA C++ for ``sm_90a``, built
-with ``nvcc`` into ``colbert_torch/build/`` at first use and loaded with
-ctypes. At the build path's shape (S=512, hd=64, bf16) the work is 256
-FLOPs per byte of q, k, v and out, just under the H100's 295: its least
-time is set by the bytes, with the bf16 tensor-core time 14% below, so
-both bounds matter; this first version runs fp32 FMAs (the source note
-says how).
+The kernels (``csrc/flash_attention.cu``) are CUDA C++ for ``sm_90a``,
+built with ``nvcc`` into ``colbert_torch/build/`` at first use and loaded
+with ctypes. :func:`_variant` picks one from the dtype and head dim alone:
+``"mma"``, ``flash_mma_kernel``, runs both products on the tensor cores
+(``mma.sync`` on bf16/fp16, a ``cp.async`` K/V ring) for bf16 and fp16 at
+head dim 32, 64 or 128, and needs every pointer 16-byte aligned and every
+stride a multiple of 8 elements (it raises ``ValueError`` otherwise);
+``"simt"``, ``flash_kernel``, runs fp32 FMAs for fp32 inputs and any other
+head dim. This is a routing by type, not a fallback: a launch that fails
+raises and nothing retries on the other kernel. At the build path's shape
+(S=512, hd=64, bf16) the work is 256 FLOPs per byte of q, k, v and out,
+just under the H100's 295, so its least time is set by the bytes (the
+source note says how each kernel meets that).
 It keeps the reference's ``S % 128 == 0`` check and raises otherwise: the
 encoder's strict length buckets guarantee it wherever attention is routed
 here. ``hd`` is a multiple of 8 up to 128; inputs are fp32, bf16 or fp16.
 
 :func:`flash_attention` takes the JAX layout. :func:`flash_attention_bsh`
 takes BertLayer's ``(B, S, H*hd)`` projections and returns that layout;
-the kernel reads them through strides, so no head transpose runs. Both
-reach the same kernel and count its launches in
-``flash_attention.launches``. CUDA tensors go through the kernel (or
+the kernels read them through strides, so no head transpose runs. Both
+count every launch in ``flash_attention.launches`` and, by variant, in
+``flash_attention.variant_launches``. CUDA tensors go through a kernel (or
 raise); CPU tensors through :func:`flash_attention_plain`, the
 materialized fp32 softmax of the same function. The two differ only on a
-batch row whose every key is a pad (the kernel writes 0 there, as the
+batch row whose every key is a pad (the kernels write 0 there, as the
 Pallas kernel does; the materialized softmax averages v), which BERT never
 produces: [CLS] is always a real token.
 """
@@ -49,6 +55,9 @@ __all__ = ["flash_attention", "flash_attention_bsh", "flash_attention_plain",
 
 KERNEL_SOURCE = os.path.join(CSRC_DIR, "flash_attention.cu")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_MMA_DTYPES = (torch.bfloat16, torch.float16)
+_MMA_HEAD_DIMS = (32, 64, 128)
+_ENTRY = {"mma": "colbert_flash_attention_mma", "simt": "colbert_flash_attention"}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -62,12 +71,13 @@ def build_kernel() -> str:
         so, log = compile_cuda(KERNEL_SOURCE, "libflash_attention.so")
         if _lib is None:
             lib = ctypes.CDLL(so)
-            fn = lib.colbert_flash_attention
-            fn.restype = ctypes.c_int
-            fn.argtypes = (
-                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float]
-                + [ctypes.c_int64] * 6 + [ctypes.c_void_p]
-            )
+            for name in _ENTRY.values():
+                fn = getattr(lib, name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = (
+                    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float]
+                    + [ctypes.c_int64] * 6 + [ctypes.c_void_p]
+                )
             _lib = lib
         return log
 
@@ -98,24 +108,45 @@ def _check(q, k, v, bias, B, S, hd):
         raise ValueError(f"head dim {hd} must be a multiple of 8 up to 128")
 
 
+def _variant(dtype: torch.dtype, hd: int) -> str:
+    """The kernel for inputs of this dtype and head dim: ``"mma"`` (tensor
+    cores) for bf16/fp16 at hd 32, 64 or 128, else ``"simt"``."""
+    return "mma" if dtype in _MMA_DTYPES and hd in _MMA_HEAD_DIMS else "simt"
+
+
+def _check_aligned(tensors, strides):
+    """The mma kernel's 16-byte ``cp.async`` copies: every pointer 16-byte
+    aligned, every stride a multiple of 8 elements."""
+    for name, t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned (data_ptr {t.data_ptr():#x})")
+    if any(st % 8 for st in strides):
+        raise ValueError(f"strides {tuple(strides)} are not multiples of 8 elements")
+
+
 def _launch(q, k, v, bias, out, B, H, S, hd, in_strides, out_strides):
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_attention takes fp32, bf16 or fp16, not {q.dtype}")
+    variant = _variant(q.dtype, hd)
+    if variant == "mma":
+        _check_aligned((("q", q), ("k", k), ("v", v), ("out", out)),
+                       (*in_strides, *out_strides))
     if _lib is None:
         build_kernel()
     bias = bias.contiguous()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _lib.colbert_flash_attention(
+        rc = getattr(_lib, _ENTRY[variant])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             out.data_ptr(), _DTYPES[q.dtype], B, H, S, hd, 1.0 / math.sqrt(hd),
             *in_strides, *out_strides, stream,
         )
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed (code {rc})")
+        raise RuntimeError(f"flash_attention {variant} kernel launch failed (code {rc})")
     flash_attention.launches += 1
+    flash_attention.variant_launches[variant] += 1
     return out
 
 
@@ -160,3 +191,4 @@ def flash_attention_bsh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+flash_attention.variant_launches = {"mma": 0, "simt": 0}

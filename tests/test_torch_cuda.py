@@ -3,7 +3,9 @@ PyTorch version (TF32 off, tolerance 1e-4) on the cases of the CPU parity
 tests; the flash-attention kernel vs its plain version (fp32 inputs to
 1e-4; bf16 inputs within 8e-3 * max(1, |plain|), one bf16 rounding step of
 the output, against the plain version on the fp32 upcast of the same
-inputs); and the device rules of the wrappers. Every test skips without a
+inputs), each case through the kernel its dtype and head dim select
+(tensor-core ``mma`` for bf16/fp16 at hd 32/64/128, ``simt`` otherwise);
+and the device and alignment rules of the wrappers. Every test skips without a
 GPU. This file imports no JAX; on a machine without JAX run it as
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -97,14 +99,22 @@ def _flash_case(seed, B, H, S, hd, dtype, device):
     (2, 3, 128, 32, torch.float32), (2, 3, 256, 32, torch.float32),
     (4, 12, 512, 64, torch.float32), (4, 12, 512, 64, torch.bfloat16),
     (2, 2, 256, 8, torch.float32), (2, 2, 256, 128, torch.bfloat16),
+    (2, 3, 128, 32, torch.bfloat16), (2, 3, 256, 64, torch.bfloat16),
+    (2, 2, 512, 128, torch.bfloat16), (2, 3, 128, 64, torch.float16),
+    (2, 3, 512, 32, torch.float16), (2, 2, 256, 128, torch.float16),
+    (2, 2, 128, 40, torch.bfloat16), (2, 2, 256, 96, torch.float16),
 ])
 def test_flash_kernel_matches_plain(cuda_device, B, H, S, hd, dtype):
     q, k, v, bias = _flash_case(S + hd, B, H, S, hd, dtype, cuda_device)
+    variant = fa._variant(dtype, hd)
     before = fa.flash_attention.launches
+    by_variant = dict(fa.flash_attention.variant_launches)
     got = fa.flash_attention(q, k, v, bias, num_heads=H)
     want = fa.flash_attention_plain(q.float(), k.float(), v.float(), bias, num_heads=H)
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == before + 1
+    by_variant[variant] += 1
+    assert fa.flash_attention.variant_launches == by_variant
     assert got.dtype == dtype and got.shape == q.shape
     err = (got.float() - want).abs()
     if dtype == torch.float32:
@@ -129,3 +139,35 @@ def test_flash_bsh_reads_the_same_kernel(cuda_device):
     assert torch.equal(got, want)
     with pytest.raises(ValueError, match="multiple of 128"):
         fa.flash_attention(q[:, :100], k[:, :100], v[:, :100], bias[:, :100], num_heads=H)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_bsh_takes_the_mma_kernel(cuda_device, dtype):
+    B, H, S, hd = 2, 3, 256, 64
+    q, k, v, bias = _flash_case(2, B, H, S, hd, dtype, cuda_device)
+
+    def to_bsh(x):
+        return x.reshape(B, H, S, hd).transpose(1, 2).reshape(B, S, H * hd).contiguous()
+
+    mma = fa.flash_attention.variant_launches["mma"]
+    got = fa.flash_attention_bsh(to_bsh(q), to_bsh(k), to_bsh(v), bias, num_heads=H)
+    want = to_bsh(fa.flash_attention(q, k, v, bias, num_heads=H))
+    torch.cuda.synchronize()
+    assert fa.flash_attention.variant_launches["mma"] == mma + 2
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_flash_mma_rejects_misaligned_inputs(cuda_device):
+    B, H, S, hd = 2, 3, 128, 64
+    q, k, v, bias = _flash_case(3, B, H, S, hd, torch.bfloat16, cuda_device)
+    flat = torch.zeros(q.numel() + 1, dtype=q.dtype, device=cuda_device)
+    shifted = flat[1:].view(q.shape)  # contiguous, but 2 bytes past 16-byte alignment
+    shifted.copy_(q)
+    before = fa.flash_attention.launches
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention(shifted, k, v, bias, num_heads=H)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention(q, k, shifted, bias, num_heads=H)
+    assert fa.flash_attention.launches == before

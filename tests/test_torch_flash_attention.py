@@ -64,6 +64,28 @@ def test_bsh_entry_point_matches(rng):
     np.testing.assert_array_equal(got.numpy(), to_bsh(want.numpy()).numpy())
 
 
+@pytest.mark.parametrize("dtype,hd,variant", [
+    (torch.bfloat16, 32, "mma"), (torch.bfloat16, 64, "mma"), (torch.bfloat16, 128, "mma"),
+    (torch.float16, 32, "mma"), (torch.float16, 64, "mma"), (torch.float16, 128, "mma"),
+    (torch.float32, 32, "simt"), (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+    (torch.bfloat16, 8, "simt"), (torch.bfloat16, 40, "simt"), (torch.float16, 96, "simt"),
+])
+def test_variant_depends_on_dtype_and_head_dim(dtype, hd, variant):
+    assert tfa._variant(dtype, hd) == variant
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_cpu_half_inputs_take_the_plain_version(rng, dtype):
+    B, H, S, hd = 2, 2, 128, 64
+    t = [torch.from_numpy(x) for x in _case(rng, B, H, S, hd)]
+    q, k, v = (x.to(dtype) for x in t[:3])
+    before = (tfa.flash_attention.launches, dict(tfa.flash_attention.variant_launches))
+    got = tfa.flash_attention(q, k, v, t[3], num_heads=H)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.equal(got, tfa.flash_attention_plain(q, k, v, t[3], num_heads=H))
+    assert (tfa.flash_attention.launches, tfa.flash_attention.variant_launches) == before
+
+
 def test_rejects_unaligned_and_bad_inputs():
     q = torch.zeros((2, 100, 32))
     with pytest.raises(ValueError, match="multiple of 128"):
