@@ -6,21 +6,29 @@
 1. Builds both CUDA sources from ``colbert_torch/csrc/`` (stage-2
    decompress+MaxSim and flash attention; one nvcc each, started together,
    sm_90a) and prints the build time and ptxas's registers and spills per
-   kernel instantiation; the tensor-core flash kernel's bf16 hd=64
-   instantiation (the build path's) must not spill.
-2. Holds the kernel against its plain PyTorch version on the card at the
-   serving path's stage-2 shapes (B=32, Lq=32, NC=1024, Ld=160, dim=128,
-   nbits=2, K=32768) and at edge cases (nbits 1/4/8, byte words, zero
-   doclens, odd Ld and Lq), tolerance 1e-4 absolute.
+   kernel instantiation; the paths' instantiations must not spill: the
+   tensor-core flash kernel's bf16 hd=64 and the tensor-core stage-2
+   kernel's nbits 2.
+2. Holds the stage-2 kernels against their plain PyTorch version on the
+   card at the serving path's stage-2 shapes (B=32, Lq=32, NC=1024,
+   Ld=160, dim=128, nbits=2, K=32768) and at edge cases (nbits 1/4/8, byte
+   words, zero doclens, odd Ld and Lq, Ld 16/17/32/48 around the
+   tensor-core kernel's 16-row slices, every doclen Ld, a candidate ending
+   on the last row), tolerance 1e-4 absolute, each case checked to have run
+   the kernel its shapes select (``mma``, 3xTF32 on the tensor cores, for
+   dim 128 and Lq <= 32; ``simt``, fp32 FMAs, otherwise).
 3. Serves ``Searcher.search_batch`` end to end: a synthetic 141,431-passage
    index (avg doclen 110, dim 128, nbits 2, 32,768 partitions by the
    planner), a random-init ColBERT at bert-base width in bf16, batches of 32
    queries at k=10 plus one ``search_stream`` pass. Prints QPS, per-stage
-   times and a profiler view of one batch, checks that the stage-2 kernel
-   was launched, and re-scores one batch with the plain stage-2 on the card
-   (pids equal up to ties, scores to 1e-4). On that batch's own stage-2
-   inputs it times the kernel and the plain version in turns (plain,
-   kernel, kernel, plain) with CUDA events, beside the bound.
+   times and a profiler view of one batch, checks that every stage-2
+   launch took the ``mma`` kernel, and re-scores one batch with the plain
+   stage-2 on the card (pids equal up to ties, scores to 1e-4). On that
+   batch's own stage-2 inputs it times the ``mma`` kernel, PR 1's ``simt``
+   kernel (through the wrapper's private launcher) and the plain version
+   in turns with CUDA events, beside both bounds (3 TF32 products per
+   fp32 product at the TF32 tensor-core peak; fp32 FMAs at the fp32 peak);
+   then both kernels at B = 1, 8 and 32 queries x 1024 candidates.
 4. ``[flash]``: holds both flash-attention kernels against their plain
    version (the materialized fp32 softmax), each case checked to have run
    the kernel its dtype and head dim select (``mma``, tensor cores, for
@@ -48,8 +56,8 @@
    Lloyd pass at the build's partition count.
 6. ``[build-search]``: ``Searcher`` answers two 32-query batches over the
    built index (each query the first 40 words of a passage) through the
-   stage-2 kernel; prints the top-1 self-retrieval rate (random weights:
-   information only).
+   ``mma`` stage-2 kernel (checked); prints the top-1 self-retrieval rate
+   (random weights: information only).
 7. Prints the card's name and power limit, a ``kernels`` JSON line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
@@ -72,6 +80,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TOL = 1e-4
 PEAK_FP32_FLOPS = 67e12     # H100 SXM, fp32 outside the tensor cores
+PEAK_TF32_FLOPS = 494.7e12  # H100 SXM, TF32 tensor cores, dense
 PEAK_BF16_FLOPS = 989e12    # H100 SXM, bf16 tensor cores, dense
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 N_PASSAGES = 141_431
@@ -99,9 +108,11 @@ def check(cond: bool, msg: str) -> None:
 
 
 def stage2_inputs(rng, device, *, B, Lq, NC, Ld, dim, nbits, K, n_tokens,
-                  word_bytes, zero_frac=0.0):
+                  word_bytes, zero_frac=0.0, full=False, last=False):
     """Random stage-2 inputs: flat codes/residual words over ``n_tokens``
-    rows (+ Ld zeroed tail rows) and per-candidate (offs, dls)."""
+    rows (+ Ld zeroed tail rows) and per-candidate (offs, dls); ``full``
+    sets every doclen to Ld, ``last`` puts the last candidate on the last
+    Ld rows (it ends on the arrays' last row)."""
     import torch
 
     nbytes = dim // 8 * nbits
@@ -117,6 +128,10 @@ def stage2_inputs(rng, device, *, B, Lq, NC, Ld, dim, nbits, K, n_tokens,
     dls = rng.integers(1, Ld + 1, (B, NC)).astype(np.int32)
     dls[rng.random((B, NC)) < zero_frac] = 0
     offs = rng.integers(0, n_tokens - Ld, (B, NC)).astype(np.int64)
+    if full:
+        dls[:] = Ld
+    if last:
+        offs[-1, -1], dls[-1, -1] = n_tokens, Ld
     Q = rng.standard_normal((B, Lq, dim)).astype(np.float32)
     Q /= np.linalg.norm(Q, axis=-1, keepdims=True)
 
@@ -128,20 +143,22 @@ def stage2_inputs(rng, device, *, B, Lq, NC, Ld, dim, nbits, K, n_tokens,
         dict(nbits=nbits, max_doclen=Ld)
 
 
-def stage2_bound_ms(args, kw) -> tuple[float, str]:
-    """Least time for the work these inputs need: the larger of fp32
-    operations over the fp32 peak and bytes over the memory rate (each
-    input read once: Q, offs, dls, the valid tokens' codes and residual
-    bytes, the distinct centroid rows they touch, the weights; the output
-    written once)."""
+def stage2_bound_ms(args, kw) -> dict:
+    """Least time for the work these inputs need, per kernel -> {variant:
+    (ms, "operations" or "bytes")}: the larger of the operations over their
+    peak and the bytes over the memory rate (each input read once: Q, offs,
+    dls, the valid tokens' codes and residual bytes, the distinct centroid
+    rows they touch, the weights; the output written once). ``mma`` does
+    each fp32 product as 3 TF32 products on the tensor cores, beside the
+    decode (4*dim per token) on the fp32 cores; ``simt`` does both in fp32."""
     import torch
 
     Q, dls, offs = args["Q"], args["dls"].to(torch.int64), args["offs"]
     B, Lq, dim = Q.shape
     ntok = int(dls.sum())
     nbytes = dim // 8 * kw["nbits"]
-    # dots (2*Lq*dim per token) + decode, square-sum and divide (4*dim)
-    flops = ntok * (2 * Lq * dim + 4 * dim)
+    dots = ntok * 2 * Lq * dim
+    decode = ntok * 4 * dim  # decode, square-sum and scale
     ar = torch.arange(kw["max_doclen"], device=Q.device)
     valid = ar < dls[..., None]
     tok = (offs[..., None] + ar)[valid]
@@ -149,9 +166,11 @@ def stage2_bound_ms(args, kw) -> tuple[float, str]:
     nbytes_moved = (Q.numel() * 4 + offs.numel() * 8 + dls.numel() * 4
                     + ntok * (4 + nbytes) + distinct * dim * 4
                     + args["bucket_weights"].numel() * 4 + offs.numel() * 4)
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = {"mma": max(3 * dots / PEAK_TF32_FLOPS, decode / PEAK_FP32_FLOPS) * 1e3,
+             "simt": (dots + decode) / PEAK_FP32_FLOPS * 1e3}
     t_bytes = nbytes_moved / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return {v: (max(t, t_bytes), "operations" if t >= t_bytes else "bytes")
+            for v, t in t_ops.items()}
 
 
 def time_ms(fn, reps: int) -> float:
@@ -170,7 +189,8 @@ def time_ms(fn, reps: int) -> float:
 
 
 def kernel_vs_plain(device) -> dict:
-    """Phase 2: every case within TOL -> the largest error."""
+    """Phase 2: every case within TOL, through the kernel its shapes
+    select -> the largest error."""
     import torch
 
     from colbert_torch.ops import fused_maxsim as fm
@@ -187,17 +207,30 @@ def kernel_vs_plain(device) -> dict:
         dict(main, B=3, NC=257, Ld=37, Lq=13, n_tokens=50_000, zero_frac=0.2),
         dict(main, B=2, NC=100, Ld=160, Lq=45, nbits=4, n_tokens=50_000,
              zero_frac=0.5),
+        # the tensor-core kernel's 16-row slices and 32 query columns
+        dict(main, B=2, NC=300, Ld=16, nbits=1, n_tokens=50_000, zero_frac=0.1),
+        dict(main, B=2, NC=300, Ld=17, word_bytes=1, n_tokens=50_000, zero_frac=0.1),
+        dict(main, B=2, NC=300, Ld=32, nbits=4, n_tokens=50_000),
+        dict(main, B=2, NC=300, Ld=48, Lq=31, n_tokens=50_000, zero_frac=0.1),
+        dict(main, B=2, NC=300, n_tokens=100_000, full=True),
+        dict(main, B=2, NC=300, Ld=17, nbits=8, word_bytes=1, n_tokens=50_000, last=True),
     ]
     worst = 0.0
     for i, case in enumerate([main] + edges):
         args, kw = stage2_inputs(rng, device, **case)
+        variant = fm._variant(case["Lq"], case["dim"], case["nbits"], case["word_bytes"])
+        before = dict(fm.stage2_maxsim.variant_launches)
         got = fm.stage2_maxsim(**args, **kw)
         want = fm.stage2_maxsim_plain(**args, **kw)
         torch.cuda.synchronize()
+        before[variant] += 1
+        label = "main" if i == 0 else f"edge{i}"
+        check(fm.stage2_maxsim.variant_launches == before,
+              f"stage2 {label}: not one {variant} launch")
         err = float((got - want).abs().max())
         zero_ok = bool((got[args["dls"] == 0] == 0).all())
-        label = "main" if i == 0 else f"edge{i}"
-        print(f"[stage2] {label} {case} max_abs_err={err:.3e} zero_doclen_ok={zero_ok}")
+        print(f"[stage2] {label} {variant} {case} max_abs_err={err:.3e} "
+              f"zero_doclen_ok={zero_ok}")
         check(np.isfinite(err) and err <= TOL, f"stage2 {label}: max_abs_err {err} > {TOL}")
         check(zero_ok, f"stage2 {label}: zero-doclen candidate not 0")
         worst = max(worst, err)
@@ -205,25 +238,50 @@ def kernel_vs_plain(device) -> dict:
 
 
 def time_stage2(args, kw) -> dict:
-    """Kernel and plain version in turns (plain, kernel, kernel, plain) on
-    the same inputs, CUDA-event timed, beside the bound."""
+    """The path's ``mma`` kernel, PR 1's ``simt`` kernel (through the
+    wrapper's private launcher) and the plain version in turns (plain,
+    mma, simt, mma, simt, plain) on the same inputs, CUDA-event timed,
+    beside both bounds."""
     from colbert_torch.ops import fused_maxsim as fm
 
     plain = lambda: fm.stage2_maxsim_plain(**args, **kw)  # noqa: E731
-    kern = lambda: fm.stage2_maxsim(**args, **kw)  # noqa: E731
-    err = float((kern() - plain()).abs().max())
+    mma = lambda: fm._launch("mma", **args, **kw)  # noqa: E731
+    simt = lambda: fm._launch("simt", **args, **kw)  # noqa: E731
+    want = plain()
+    err = max(float((mma() - want).abs().max()), float((simt() - want).abs().max()))
     check(np.isfinite(err) and err <= TOL, f"stage2 on the main path's inputs: {err}")
     p1 = time_ms(plain, 3)
-    k1 = time_ms(kern, 20)
-    k2 = time_ms(kern, 20)
+    m1, s1 = time_ms(mma, 20), time_ms(simt, 20)
+    m2, s2 = time_ms(mma, 20), time_ms(simt, 20)
     p2 = time_ms(plain, 3)
-    bound, by = stage2_bound_ms(args, kw)
+    bounds = stage2_bound_ms(args, kw)
     print(f"[stage2] timing on the main path's inputs {tuple(args['offs'].shape)} "
-          f"kernel_ms={k1:.4f},{k2:.4f} plain_ms={p1:.4f},{p2:.4f} "
-          f"bound_ms={bound:.4f} ({by}) tokens={int(args['dls'].sum())} "
-          f"max_abs_err={err:.3e}")
-    return dict(kernel_ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-                bound_ms=bound, bound_by=by, stage2_err=err)
+          f"mma_ms={m1:.4f},{m2:.4f} simt_ms={s1:.4f},{s2:.4f} plain_ms={p1:.4f},{p2:.4f} "
+          f"bound_ms={bounds['mma'][0]:.4f} ({bounds['mma'][1]}; 3xTF32 on the tensor cores) "
+          f"fp32_bound_ms={bounds['simt'][0]:.4f} ({bounds['simt'][1]}) "
+          f"tokens={int(args['dls'].sum())} max_abs_err={err:.3e}")
+    return dict(kernel_ms=(m1 + m2) / 2, simt_ms=(s1 + s2) / 2, plain_ms=(p1 + p2) / 2,
+                bound_ms=bounds["mma"][0], bound_by=bounds["mma"][1],
+                fp32_bound_ms=bounds["simt"][0], stage2_err=err)
+
+
+def stage2_sweep(device) -> None:
+    """Both kernels at B = 1, 8 and 32 queries x 1024 candidates of the
+    serving geometry (Lq 32, dim 128, nbits 2, 32-bit words, doclens in
+    [1, 160]), beside the ``mma`` bound."""
+    from colbert_torch.ops import fused_maxsim as fm
+
+    rng = np.random.default_rng(6)
+    for B in (1, 8, 32):
+        args, kw = stage2_inputs(rng, device, B=B, Lq=32, NC=1024, Ld=160, dim=128, nbits=2,
+                                 K=32768, n_tokens=2_000_000, word_bytes=4)
+        mma = lambda: fm._launch("mma", **args, **kw)  # noqa: E731
+        simt = lambda: fm._launch("simt", **args, **kw)  # noqa: E731
+        m1, s1, m2 = time_ms(mma, 20), time_ms(simt, 20), time_ms(mma, 20)
+        bounds = stage2_bound_ms(args, kw)
+        print(f"[stage2] sweep B={B} NC=1024 tokens={int(args['dls'].sum())}: "
+              f"mma_ms={m1:.4f},{m2:.4f} simt_ms={s1:.4f} bound_ms={bounds['mma'][0]:.4f} "
+              f"({bounds['mma'][1]}) fp32_bound_ms={bounds['simt'][0]:.4f}")
 
 
 # ---------------------------------------------------------------------------
@@ -300,6 +358,7 @@ def main_path(device, *, n_passages: int, bert_cfg, index_dir: str,
         torch.cuda.synchronize()
 
     fm.stage2_maxsim.launches = 0
+    fm.stage2_maxsim.variant_launches.update(mma=0, simt=0)
     t0 = time.perf_counter()
     results = [searcher.search_batch(b, k=10) for b in batches[1:]]
     dt = time.perf_counter() - t0
@@ -308,9 +367,11 @@ def main_path(device, *, n_passages: int, bert_cfg, index_dir: str,
     streamed = list(searcher.search_stream(batches[1:], k=10))
     dt_stream = time.perf_counter() - t0
     launches = fm.stage2_maxsim.launches
+    by_variant = dict(fm.stage2_maxsim.variant_launches)
     print(f"[serve] search_batch: {n_batches} x B={batch} in {dt:.4f}s -> "
           f"QPS {qps:.2f}; search_stream: {dt_stream:.4f}s -> QPS "
-          f"{batch * n_batches / dt_stream:.2f}; stage2 kernel launches {launches}")
+          f"{batch * n_batches / dt_stream:.2f}; stage2 kernel launches {launches} "
+          f"(by kernel {by_variant})")
 
     for (p, s), (p2, s2) in zip(results, streamed):
         check(p.shape == (batch, 10) and s.shape == (batch, 10), "result shape")
@@ -355,8 +416,8 @@ def main_path(device, *, n_passages: int, bert_cfg, index_dir: str,
     check(why is None, f"kernel vs plain stage-2 on the main path: {why}")
     timing = time_stage2(recorded["args"], recorded["kw"]) if device.type == "cuda" else {}
     return dict(qps=qps, stream_qps=batch * n_batches / dt_stream,
-                launches=launches, stages_ms=stages, rescore_err=err, encoder=enc,
-                **timing)
+                launches=launches, by_variant=by_variant, stages_ms=stages,
+                rescore_err=err, encoder=enc, **timing)
 
 
 def device_profile(fn) -> dict:
@@ -698,9 +759,11 @@ def build_search(enc, passages, index_dir: str, *, batch: int = BATCH) -> dict:
     pids = rng.choice(len(passages), size=2 * batch, replace=False)
     queries = [" ".join(passages[p].split()[:40]) for p in pids]
     fm.stage2_maxsim.launches = 0
+    fm.stage2_maxsim.variant_launches.update(mma=0, simt=0)
     results = [searcher.search_batch(queries[i:i + batch], k=10)
                for i in range(0, 2 * batch, batch)]
     launches = fm.stage2_maxsim.launches
+    by_variant = dict(fm.stage2_maxsim.variant_launches)
     hits = 0
     for i, (p, s) in enumerate(results):
         check(p.shape == (batch, 10) and s.shape == (batch, 10), "build-search: shape")
@@ -708,22 +771,26 @@ def build_search(enc, passages, index_dir: str, *, batch: int = BATCH) -> dict:
         check(bool(np.isfinite(s).all()), "build-search: non-finite scores")
         check(bool((np.diff(s, axis=1) <= 1e-6).all()), "build-search: not descending")
         hits += int((p[:, 0] == pids[i * batch:(i + 1) * batch]).sum())
-    print(f"[build-search] 2 x {batch} queries; stage-2 launches {launches}; top-1 "
-          f"self-retrieval {hits}/{2 * batch} (random weights: information only)")
+    print(f"[build-search] 2 x {batch} queries; stage-2 launches {launches} (by kernel "
+          f"{by_variant}); top-1 self-retrieval {hits}/{2 * batch} (random weights: "
+          f"information only)")
     if enc.device.type == "cuda":
-        check(launches > 0, "build-search: the stage-2 kernel was not launched")
+        check(launches > 0 and by_variant == {"mma": launches, "simt": 0},
+              f"build-search: stage-2 launches by kernel {by_variant}, expected all mma")
     return dict(search_launches=launches, self_top1=hits / (2 * batch))
 
 
 def kernel_label(mangled: str) -> str:
-    """``flash_mma_kernel<bf16,64>`` for the mangled name of that
-    instantiation of one of the repo's kernels, else the name as it is."""
+    """``flash_mma_kernel<bf16,64>`` (``stage2_mma_kernel<2>``) for the
+    mangled name of that instantiation of one of the repo's kernels, else
+    the name as it is."""
     import re
 
-    m = re.search(r"\d+(flash_mma_kernel|flash_kernel|stage2_kernel)I(.+?)EEv", mangled)
+    m = re.search(r"\d+(flash_mma_kernel|flash_kernel|stage2_mma_kernel|stage2_kernel)"
+                  r"I(.+?)EEv", mangled)
     if m is None:
         return mangled
-    args = re.sub(r"Li(\d+)E", r",\1", m.group(2))
+    args = re.sub(r"Li(\d+)E", r",\1", m.group(2)).lstrip(",")
     args = args.replace("13__nv_bfloat16", "bf16").replace("6__half", "fp16")
     args = {"f": "fp32", "j": "uint32", "h": "uint8"}.get(args, args)
     return f"{m.group(1)}<{args}>"
@@ -779,19 +846,22 @@ def main() -> int:
     for src, log in logs.items():
         for name, spills, regs in ptxas_resources(log):
             print(f"[build] {src}: {name}: {spills}; {regs}")
-    mma64 = [spills for name, spills, _ in ptxas_resources(logs["flash_attention.cu"])
-             if name == "flash_mma_kernel<bf16,64>"]
-    check(mma64 == ["0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"],
-          f"flash_mma_kernel<bf16,64>: ptxas reports {mma64}")
+    no_spill = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+    for src, path_kernel in (("flash_attention.cu", "flash_mma_kernel<bf16,64>"),
+                             ("stage2_maxsim.cu", "stage2_mma_kernel<2>")):
+        found = [spills for name, spills, _ in ptxas_resources(logs[src]) if name == path_kernel]
+        check(found == [no_spill], f"{path_kernel}: ptxas reports {found}")
 
     max_err = kernel_vs_plain(device)
+    stage2_sweep(device)
     index_dir = os.path.join(BUILD_DIR, "smoke_index")
     try:
         mp = main_path(device, n_passages=N_PASSAGES, bert_cfg=BertConfig(),
                        index_dir=index_dir)
     finally:
         shutil.rmtree(index_dir, ignore_errors=True)
-    check(mp["launches"] > 0, "the stage-2 kernel was not launched on the main path")
+    check(mp["launches"] > 0 and mp["by_variant"] == {"mma": mp["launches"], "simt": 0},
+          f"stage-2 launches on the main path by kernel {mp['by_variant']}, expected all mma")
 
     t0 = time.perf_counter()
     passages = synthetic_passages(BUILD_PASSAGES, mean_words=BUILD_MEAN_WORDS)
@@ -818,12 +888,13 @@ def main() -> int:
                       "build_phases": bp["timings"], "self_top1": bs["self_top1"]}))
     print(card_line())
     kernels = [dict(
-        name="stage2_maxsim", route="cuda",
+        name="stage2_maxsim", route="cuda", variant="mma.sync-3xtf32",
         source="colbert_torch/csrc/stage2_maxsim.cu",
         replaces="colbert_tpu/ops/fused_maxsim.py:121",
         launches=mp["launches"], max_abs_err=max(max_err, mp["stage2_err"]),
         ms=mp["kernel_ms"], kernel_ms=mp["kernel_ms"], plain_ms=mp["plain_ms"],
         bound_ms=mp["bound_ms"], bound_by=mp["bound_by"], library_ms=None,
+        simt_ms=mp["simt_ms"], fp32_bound_ms=mp["fp32_bound_ms"],
     ), dict(
         name="flash_attention", route="cuda", variant="mma.sync",
         source="colbert_torch/csrc/flash_attention.cu",

@@ -17,18 +17,69 @@
 // 4 bytes of code + dim*nbits/8 bytes of residual (+ a centroid row that is
 // mostly L2-resident) and does 2*Lq*dim FLOPs: at Lq=32, dim=128, nbits=2
 // that is 8192 FLOPs per 36 bytes, far above the card's fp32 FLOP:byte
-// ratio (67 TFLOP/s over 3.35 TB/s = 20), so it is bound by fp32 operations.
-// The design keeps everything on chip: one block per (query, candidate)
-// decodes the candidate's tokens a tile at a time into shared memory, so the
-// decompressed fp32 embeddings never reach device memory; the query's Lq
-// rows sit in shared memory with a padded stride (conflict-free float4
-// reads, one query token per lane) and each warp blocks 4 doc rows in
-// registers, so the inner loop issues 5 shared loads per 16 FMAs. The FMAs
-// run on the fp32 cores; wgmma/TMA are left for a later change.
+// ratio (67 TFLOP/s over 3.35 TB/s = 20), so it is bound by operations.
+// The Python wrapper picks one of two kernels from the shapes alone
+// (ops/fused_maxsim.py::_variant); both keep the decompressed embeddings
+// out of device memory.
+//
+// stage2_mma_kernel<NBITS> (dim 128, Lq <= 32, any nbits and word width;
+// the serving path's kernel): the dots on the tensor cores with
+// mma.sync.m16n8k8 in 3xTF32, which keeps fp32 accuracy. Each fp32 operand
+// x is split into hi = tf32(x) and lo = tf32(x - hi) (round to nearest,
+// as cvt.rna rounds) and one fp32 accumulator takes lo*hi, then hi*lo, then
+// hi*hi; the product error stays near 2^-22 relative, where one TF32
+// product leaves ~2^-11 (enough to move a sum of 32 maxima by ~4e-4). Doc
+// tokens are the M rows (16-row slices), query tokens the N columns (four
+// n8 tiles, Lq padded with zero rows and left out of the sum), dim is K.
+// The dot and the norm do not change when the dims are permuted, so the
+// k8 steps walk the dims in an order that fits the fragments: lane
+// (g = lane/4, t = lane%4) holds rows g and g+8 at columns t and t+4 of
+// each A fragment, and logical column t + 4 h of step kk is physical dim
+// 16 (kk/2) + 4 t + 2 (kk%2) + h. Two k8 steps thus take one float4 of
+// each row per lane, and the quad's four float4s are 64 contiguous bytes
+// of the centroid row: each warp-wide load touches 8 cache lines (with a
+// lane owning a contiguous quarter of the row it touched 32).
+// With the float4 the lane loads the chunk's 4*nbits residual bits (one
+// byte, half word or word: dim d sits at bit d*nbits of the row for bytes
+// and little-endian words alike) and decodes e = cent + w[b] straight into
+// its A fragments; no embedding touches shared memory. At nbits 1 and 2
+// the weights of two elements come from one 8-byte read of a table of
+// (w[b0], w[b1]). Each row's sum of squares accumulates beside the
+// products, reduces over the quad with two shuffles, and scales the row's
+// scores after the products by 1 / max(sqrt(ss), 1e-12) (exact sqrt and
+// divide), as the TPU kernel does; there is no normalise pass. Q[b] is
+// loaded once per block, permuted the same way, split into hi and lo and
+// stored in B-fragment order (one conflict-free 16-byte read per lane per
+// n8 tile and k8 step). Warps work alone after the block's one barrier:
+// each takes the block's candidates from a shared counter and walks them
+// kSlices slices at a time, its running max per query column in registers
+// (rows at or past the doclen never enter it), reduced over the 8 row
+// groups and summed over the valid columns when the candidate ends. The
+// next kPrefetch chunks of every row, and the next group's codes, are in
+// flight while a chunk is in the products (a register ring that runs
+// across group and candidate boundaries). A row at or past min(dl,
+// max_doclen) reads the candidate's first row instead, so nothing past the
+// data is read. What limits it: 16 warps per SM need <= 128 registers,
+// which leaves room for one 16-row slice per Q fragment read (two need
+// ~165 registers and lost), so each fragment feeds 3 products and the
+// shared-memory reads of Q are about as many as the tensor cores' issue
+// slots; mma.sync reaches ~0.65 m16n8k8 per SM per clock on this card,
+// about 300 TFLOP/s of TF32, so the products alone take ~0.31 ms of the
+// serving batch. Blocks are sized so the grid holds ~kBlocksPerSm blocks
+// per SM at the serving batch and still fills the card at B=1.
+//
+// stage2_kernel<W> (every other shape): fp32 FMAs. One block per (query,
+// candidate) decodes the candidate's tokens a tile at a time into shared
+// memory; the query's Lq rows sit in shared memory with a padded stride
+// (conflict-free float4 reads, one query token per lane) and each warp
+// blocks 4 doc rows in registers, so the inner loop issues 5 shared loads
+// per 16 FMAs.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -163,6 +214,403 @@ int launch(const float* Q, const int64_t* offs, const int32_t* dls,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// stage2_mma_kernel: 3xTF32 on the tensor cores through mma.sync
+// ---------------------------------------------------------------------------
+
+// Block shape: warps per block, 16-row slices per Q fragment read, the
+// blocks per SM the grid aims at, the blocks per SM the registers are
+// budgeted for, and the chunks in flight ahead of the one in the products.
+// The defaults are the fastest of tune_stage2.py's shapes on the H100 (16
+// warps per SM at <= 128 registers; a second slice per fragment needs ~165
+// registers and lost at every budget); that script rebuilds this file with
+// -DSTAGE2_MMA_<NAME> overrides to time others.
+#ifndef STAGE2_MMA_WARPS
+#define STAGE2_MMA_WARPS 4
+#endif
+#ifndef STAGE2_MMA_SLICES
+#define STAGE2_MMA_SLICES 1
+#endif
+#ifndef STAGE2_MMA_BLOCKS_PER_SM
+#define STAGE2_MMA_BLOCKS_PER_SM 8
+#endif
+#ifndef STAGE2_MMA_MINB
+#define STAGE2_MMA_MINB 4
+#endif
+#ifndef STAGE2_MMA_PREFETCH
+#define STAGE2_MMA_PREFETCH 3
+#endif
+
+constexpr int kMmaDim = 128;               // the only dim the kernel takes
+constexpr int kMmaLq = 32;                 // the most query tokens
+constexpr int kNT = kMmaLq / 8;            // n8 tiles of query tokens
+constexpr int kKS = kMmaDim / 8;           // k8 steps
+constexpr int kChunks = kKS / 2;           // 16-dim chunks: a float4 per lane and row
+constexpr int kMmaWarps = STAGE2_MMA_WARPS;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kSlices = STAGE2_MMA_SLICES;
+constexpr int kGroupRows = 16 * kSlices;
+constexpr int kBlocksPerSm = STAGE2_MMA_BLOCKS_PER_SM;
+constexpr int kMaxPerWarp = 8;  // candidates a warp is given at most
+constexpr int kMaxCandidates = kMmaWarps * kMaxPerWarp;  // per block
+constexpr int kPrefetch = STAGE2_MMA_PREFETCH;  // chunks in flight beside the one in use
+constexpr int kRing = kPrefetch + 1;
+static_assert(kChunks % kRing == 0, "a group's chunk j and the next one's use the same slot");
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo to ~2^-22 relative, both tf32 (Q, once per block)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// The same split for the A operand in the main loop, in two integer ops:
+// cvt.rna on a finite x is (bits + 0x1000) & ~0x1fff (ties away from
+// zero), which ptxas expands with an infinity test and a select as well.
+// The tensor cores read only the top 19 bits of a tf32 operand, so lo
+// keeps its low bits once the half ulp is added. (The same integer form
+// for Q as well left the kernel 9% slower in tune_stage2.py: ptxas
+// scheduled the main loop differently.)
+__device__ __forceinline__ void split_tf32_finite(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+}
+
+// d += a b for a 16x8 (row-major) A, an 8x8 (column-major) B and a 16x8
+// fp32 C/D, tf32 inputs. With g = lane/4 and t = lane%4: a = {(g, t),
+// (g+8, t), (g, t+4), (g+8, t+4)}, b = {(k t, n g), (k t+4, n g)},
+// d = {(g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)}.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The lane's residual bits of one chunk (its 4 dims 16 j + 4 t .. + 3 of a
+// row): 4*NBITS bits at bit (16 j + 4 t)*NBITS of the row's bit string,
+// read as a byte, half word or word (a nibble of a byte at nbits 1).
+template <int NBITS>
+__device__ __forceinline__ uint32_t load_bits(const uint8_t* p) {
+  if constexpr (NBITS <= 2) return __ldg(p);
+  else if constexpr (NBITS == 4) return __ldg(reinterpret_cast<const unsigned short*>(p));
+  else return __ldg(reinterpret_cast<const unsigned int*>(p));
+}
+
+// Bucket weight of element e (0..3) of a chunk whose bits are v (nbits 4
+// and 8; nbits 1 and 2 look up pairs, see weights2 in the kernel).
+template <int NBITS>
+__device__ __forceinline__ float bucket_weight(const float* bw_s, uint32_t v, int e) {
+  constexpr uint32_t kMask = ((1u << NBITS) - 1u) << 2;  // a byte offset into bw_s
+  const int sh = e * NBITS;
+  const uint32_t off = sh >= 2 ? (v >> (sh - 2)) & kMask : (v << (2 - sh)) & kMask;
+  return *reinterpret_cast<const float*>(reinterpret_cast<const char*>(bw_s) + off);
+}
+
+// A warp's place in its work: candidate c of the block (-1 when there is
+// none left), its token offset and clamped doclen, and the first row of
+// the current group of kSlices slices.
+struct Cursor {
+  int64_t off;
+  int c, dl, s0;
+};
+
+template <int NBITS>
+__global__ void __launch_bounds__(kMmaThreads, STAGE2_MMA_MINB)
+stage2_mma_kernel(const float* __restrict__ Q, const int64_t* __restrict__ offs,
+                  const int32_t* __restrict__ dls, const int32_t* __restrict__ codes,
+                  const uint8_t* __restrict__ res, const float* __restrict__ centroids,
+                  const float* __restrict__ bucket_weights, float* __restrict__ out, int NC,
+                  int Lq, int max_doclen, int cpb) {
+  __shared__ uint4 qf_s[kNT * kKS * 32];  // {hi(b0), hi(b1), lo(b0), lo(b1)} per lane
+  __shared__ float bw_s[1 << NBITS];
+  constexpr bool kPairs = NBITS <= 2;  // weights of two elements in one 8-byte read
+  __shared__ float2 pair_s[kPairs ? 1 << (2 * NBITS) : 1];
+  __shared__ int64_t off_s[kMaxCandidates];
+  __shared__ int dl_s[kMaxCandidates];
+  __shared__ int next_s;
+
+  // the blocks of one query are consecutive: they read its Q from L2
+  const int nblk = (NC + cpb - 1) / cpb;
+  const int b = blockIdx.x / nblk;
+  const int c0 = (blockIdx.x - b * nblk) * cpb;
+  const int n = min(cpb, NC - c0);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int64_t base = static_cast<int64_t>(b) * NC + c0;
+
+  // Q[b]: entry (nt, kk, l) holds query token 8 nt + l/4 at the dims of
+  // b0 and b1 of lane l, 16 (kk/2) + 4 (l%4) + 2 (kk%2) and + 1 (zero past Lq)
+  const float* qb = Q + static_cast<int64_t>(b) * Lq * kMmaDim;
+  for (int i = tid; i < kNT * kKS * 32; i += kMmaThreads) {
+    const int l = i & 31, kk = (i >> 5) % kKS, nt = (i >> 5) / kKS;
+    const int row = nt * 8 + (l >> 2);
+    float2 x = make_float2(0.f, 0.f);
+    if (row < Lq)
+      x = *reinterpret_cast<const float2*>(qb + row * kMmaDim + 16 * (kk >> 1) + 4 * (l & 3) +
+                                           2 * (kk & 1));
+    uint32_t h0, l0, h1, l1;
+    split_tf32(x.x, h0, l0);
+    split_tf32(x.y, h1, l1);
+    qf_s[i] = make_uint4(h0, h1, l0, l1);
+  }
+  for (int i = tid; i < (1 << NBITS); i += kMmaThreads) bw_s[i] = bucket_weights[i];
+  if constexpr (kPairs)
+    for (int i = tid; i < (1 << (2 * NBITS)); i += kMmaThreads)
+      pair_s[i] = make_float2(bucket_weights[i & ((1 << NBITS) - 1)], bucket_weights[i >> NBITS]);
+  // weights of chunk elements 2 sub and 2 sub + 1 of bits v: at nbits 1
+  // and 2 one entry of a table of (w[b0], w[b1]) indexed by both buckets
+  auto weights2 = [&](uint32_t v, int sub) -> float2 {
+    if constexpr (kPairs) {
+      constexpr uint32_t kMask = ((1u << (2 * NBITS)) - 1u) << 3;  // a byte offset into pair_s
+      const int sh = 2 * sub * NBITS;
+      const uint32_t off = sh >= 3 ? (v >> (sh - 3)) & kMask : (v << (3 - sh)) & kMask;
+      return *reinterpret_cast<const float2*>(reinterpret_cast<const char*>(pair_s) + off);
+    } else {
+      return make_float2(bucket_weight<NBITS>(bw_s, v, 2 * sub),
+                         bucket_weight<NBITS>(bw_s, v, 2 * sub + 1));
+    }
+  };
+  for (int i = tid; i < n; i += kMmaThreads) {
+    const int dl = min(dls[base + i], max_doclen);
+    dl_s[i] = dl;
+    off_s[i] = offs[base + i];
+    if (dl <= 0) out[base + i] = 0.f;
+  }
+  if (tid == 0) next_s = 0;
+  __syncthreads();  // the block's only barrier
+
+  // the block's next candidate with a token, or c = -1
+  auto fetch = [&](Cursor& cu) {
+    int c;
+    do {
+      c = 0;
+      if (lane == 0) c = atomicAdd(&next_s, 1);
+      c = __shfl_sync(0xffffffffu, c, 0);
+    } while (c < n && dl_s[c] <= 0);
+    cu.s0 = 0;
+    if (c < n) {
+      cu.c = c;
+      cu.dl = dl_s[c];
+      cu.off = off_s[c];
+    } else {
+      cu.c = -1;
+      cu.dl = 0;
+      cu.off = 0;
+    }
+  };
+
+  // The group's rows that the lane holds are s0 + 16 i + g + 8 h. A row at
+  // or past dl reads the candidate's first row instead, so nothing past the
+  // data is read, and never enters the max. Per row: its code (loaded one
+  // group ahead), then a pointer to the lane's float4s of its centroid row
+  // (chunk j at + 4 j) and to its chunk bits (chunk j at + 2 NBITS j bytes).
+  const float4* cent4 = reinterpret_cast<const float4*>(centroids) + t;
+  const int bit_off = t * NBITS / 2;  // bytes; at nbits 1, lanes 2s and 2s+1 share a byte
+  const int bit_sh = NBITS == 1 ? 4 * (t & 1) : 0;
+  auto load_codes = [&](const Cursor& cu, int (&code)[kSlices][2],
+                        const uint8_t* (&bp)[kSlices][2]) {
+#pragma unroll
+    for (int i = 0; i < kSlices; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = cu.s0 + 16 * i + g + 8 * h;
+        const int64_t tok = cu.off + (row < cu.dl ? row : 0);
+        code[i][h] = __ldg(codes + tok);
+        bp[i][h] = res + tok * (16 * NBITS) + bit_off;
+      }
+  };
+  auto rows_of = [&](const int (&code)[kSlices][2], const float4* (&rp)[kSlices][2]) {
+#pragma unroll
+    for (int i = 0; i < kSlices; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) rp[i][h] = cent4 + static_cast<int64_t>(code[i][h]) * (kMmaDim / 4);
+  };
+  auto load_chunk = [&](const float4* (&rp)[kSlices][2], const uint8_t* (&bp)[kSlices][2], int j,
+                        float4 (&cv)[kSlices][2], uint32_t (&bv)[kSlices][2]) {
+#pragma unroll
+    for (int i = 0; i < kSlices; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        cv[i][h] = __ldg(rp[i][h] + 4 * j);
+        bv[i][h] = load_bits<NBITS>(bp[i][h] + 2 * NBITS * j);
+      }
+  };
+
+  Cursor cur;
+  fetch(cur);
+  if (cur.c < 0) return;
+  int code[kSlices][2];
+  const uint8_t* bp[kSlices][2];
+  const float4* rp[kSlices][2];
+  load_codes(cur, code, bp);
+  rows_of(code, rp);
+  float4 cv[kRing][kSlices][2];
+  uint32_t bv[kRing][kSlices][2];
+#pragma unroll
+  for (int j = 0; j < kPrefetch; ++j) load_chunk(rp, bp, j, cv[j], bv[j]);
+  float mx[kNT][2];
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) mx[nt][0] = mx[nt][1] = -INFINITY;
+
+  while (true) {
+    // the next group: its codes now, its first chunk with our last
+    Cursor nx = cur;
+    if (cur.s0 + kGroupRows < cur.dl)
+      nx.s0 += kGroupRows;
+    else
+      fetch(nx);
+    int ncode[kSlices][2];
+    const uint8_t* nbp[kSlices][2];
+    const float4* nrp[kSlices][2];
+    if (nx.c >= 0) load_codes(nx, ncode, nbp);
+
+    const int nact = min(kSlices, (cur.dl - cur.s0 + 15) >> 4);  // slices with a row
+    float acc[kSlices][kNT][4];
+    float ss[kSlices][2];
+#pragma unroll
+    for (int i = 0; i < kSlices; ++i) {
+      ss[i][0] = ss[i][1] = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) acc[i][nt][0] = acc[i][nt][1] = acc[i][nt][2] = acc[i][nt][3] = 0.f;
+    }
+
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      const int jt = j + kPrefetch;  // the chunk to start loading
+      if (jt < kChunks) {
+        load_chunk(rp, bp, jt, cv[jt % kRing], bv[jt % kRing]);
+      } else if (nx.c >= 0) {
+        if (jt == kChunks) rows_of(ncode, nrp);
+        load_chunk(nrp, nbp, jt - kChunks, cv[jt % kRing], bv[jt % kRing]);
+      }
+      const int st = j % kRing;
+#pragma unroll
+      for (int i = 0; i < kSlices; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) bv[st][i][h] >>= bit_sh;
+#pragma unroll
+      for (int sub = 0; sub < 2; ++sub) {
+        const int kk = 2 * j + sub;
+        uint4 bq[kNT];
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) bq[nt] = qf_s[(nt * kKS + kk) * 32 + lane];
+#pragma unroll
+        for (int i = 0; i < kSlices; ++i) {
+          if (i < nact) {
+            const float4 ca = cv[st][i][0], cb = cv[st][i][1];
+            const float2 wa = weights2(bv[st][i][0], sub), wb = weights2(bv[st][i][1], sub);
+            // a = {(g, h 0), (g+8, h 0), (g, h 1), (g+8, h 1)}: chunk elements 2 sub + h
+            const float e0 = (sub ? ca.z : ca.x) + wa.x;
+            const float e1 = (sub ? cb.z : cb.x) + wb.x;
+            const float e2 = (sub ? ca.w : ca.y) + wa.y;
+            const float e3 = (sub ? cb.w : cb.y) + wb.y;
+            ss[i][0] = fmaf(e2, e2, fmaf(e0, e0, ss[i][0]));
+            ss[i][1] = fmaf(e3, e3, fmaf(e1, e1, ss[i][1]));
+            uint32_t ahi[4], alo[4];
+            split_tf32_finite(e0, ahi[0], alo[0]);
+            split_tf32_finite(e1, ahi[1], alo[1]);
+            split_tf32_finite(e2, ahi[2], alo[2]);
+            split_tf32_finite(e3, ahi[3], alo[3]);
+#pragma unroll
+            for (int nt = 0; nt < kNT; ++nt) {
+              mma_tf32(acc[i][nt], alo, bq[nt].x, bq[nt].y);
+              mma_tf32(acc[i][nt], ahi, bq[nt].z, bq[nt].w);
+              mma_tf32(acc[i][nt], ahi, bq[nt].x, bq[nt].y);
+            }
+          }
+        }
+      }
+    }
+
+    // scale each row by 1 / max(|e|, 1e-12) and fold the valid rows into
+    // the running max of each query column
+#pragma unroll
+    for (int i = 0; i < kSlices; ++i) {
+      if (i < nact) {
+        float s0 = ss[i][0], s1 = ss[i][1];
+        s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+        s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+        const float inv0 = 1.f / fmaxf(sqrtf(s0), 1e-12f);
+        const float inv1 = 1.f / fmaxf(sqrtf(s1), 1e-12f);
+        const int row = cur.s0 + 16 * i + g;
+        const bool v0 = row < cur.dl, v1 = row + 8 < cur.dl;
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          if (v0) {
+            mx[nt][0] = fmaxf(mx[nt][0], acc[i][nt][0] * inv0);
+            mx[nt][1] = fmaxf(mx[nt][1], acc[i][nt][1] * inv0);
+          }
+          if (v1) {
+            mx[nt][0] = fmaxf(mx[nt][0], acc[i][nt][2] * inv1);
+            mx[nt][1] = fmaxf(mx[nt][1], acc[i][nt][3] * inv1);
+          }
+        }
+      }
+    }
+
+    if (cur.s0 + kGroupRows >= cur.dl) {
+      // the candidate's last group: max over the 8 row groups, sum over
+      // the query columns (8 nt + 2 t + h) below Lq
+      float s = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float m = mx[nt][h];
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 4));
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 8));
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 16));
+          if (nt * 8 + 2 * t + h < Lq) s += m;
+          mx[nt][h] = -INFINITY;
+        }
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      if (lane == 0) out[base + cur.c] = s;
+    }
+    if (nx.c < 0) break;
+    cur = nx;
+#pragma unroll
+    for (int i = 0; i < kSlices; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        rp[i][h] = nrp[i][h];
+        bp[i][h] = nbp[i][h];
+      }
+  }
+}
+
+template <int NBITS>
+int launch_mma(const float* Q, const int64_t* offs, const int32_t* dls, const int32_t* codes,
+               const void* words, const float* centroids, const float* bucket_weights,
+               float* out, int B, int NC, int Lq, int max_doclen, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // candidates per warp: enough for ~kBlocksPerSm blocks per SM, at least
+  // one (B=1 still gives NC/kMmaWarps blocks), at most kMaxPerWarp
+  const int64_t total = static_cast<int64_t>(B) * NC;
+  const int64_t per = static_cast<int64_t>(kMmaWarps) * kBlocksPerSm * sms;
+  const int per_warp =
+      static_cast<int>(std::max<int64_t>(1, std::min<int64_t>(kMaxPerWarp, (total + per - 1) / per)));
+  const int cpb = kMmaWarps * per_warp;
+  const int64_t blocks = static_cast<int64_t>(B) * ((NC + cpb - 1) / cpb);
+  if (blocks > 0x7fffffff) return -1;
+  stage2_mma_kernel<NBITS><<<static_cast<unsigned>(blocks), kMmaThreads, 0, stream>>>(
+      Q, offs, dls, codes, static_cast<const uint8_t*>(words), centroids, bucket_weights, out,
+      NC, Lq, max_doclen, cpb);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). Returns 0 on success, the CUDA
@@ -184,4 +632,34 @@ extern "C" int colbert_stage2_maxsim(
                            out, B, NC, Lq, dim, nbits, max_doclen, s);
   return launch<uint32_t>(Q, offs, dls, codes, words, centroids, bucket_weights,
                           out, B, NC, Lq, dim, nbits, max_doclen, s);
+}
+
+// stage2_mma_kernel: dim 128, 1 <= Lq <= 32, nbits 1/2/4/8, bytes or 32-bit
+// words, the residual pointer 4-byte aligned; the same arguments.
+extern "C" int colbert_stage2_maxsim_mma(
+    const float* Q, const int64_t* offs, const int32_t* dls, const int32_t* codes,
+    const void* words, int word_bytes, const float* centroids,
+    const float* bucket_weights, float* out, int B, int NC, int Lq, int dim,
+    int nbits, int max_doclen, void* stream) {
+  if (dim != kMmaDim || Lq <= 0 || Lq > kMmaLq) return -1;
+  if (!(word_bytes == 1 || word_bytes == 4)) return -1;
+  if (reinterpret_cast<uintptr_t>(words) % 4 != 0) return -1;
+  if (static_cast<int64_t>(B) * NC == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (nbits) {
+    case 1:
+      return launch_mma<1>(Q, offs, dls, codes, words, centroids, bucket_weights, out, B, NC,
+                           Lq, max_doclen, s);
+    case 2:
+      return launch_mma<2>(Q, offs, dls, codes, words, centroids, bucket_weights, out, B, NC,
+                           Lq, max_doclen, s);
+    case 4:
+      return launch_mma<4>(Q, offs, dls, codes, words, centroids, bucket_weights, out, B, NC,
+                           Lq, max_doclen, s);
+    case 8:
+      return launch_mma<8>(Q, offs, dls, codes, words, centroids, bucket_weights, out, B, NC,
+                           Lq, max_doclen, s);
+    default:
+      return -1;
+  }
 }

@@ -1,4 +1,4 @@
-"""Stage-2 fused decompress + MaxSim: the CUDA kernel and its plain version.
+"""Stage-2 fused decompress + MaxSim: the CUDA kernels and their plain version.
 
 Replaces the TPU kernel ``colbert_tpu/ops/fused_maxsim.py::_kernel``
 (wrapped by ``stage2_maxsim_pallas``) and the XLA code of
@@ -9,17 +9,26 @@ call scores a whole query batch:
                    <Q[b, q], normalize(centroids[codes[o+t]] + res(o+t))>,
     o = offs[b, c]; 0 for a candidate whose doclen is 0.
 
-The kernel (``csrc/stage2_maxsim.cu``) is CUDA C++ for ``sm_90a``, built
+The kernels (``csrc/stage2_maxsim.cu``) are CUDA C++ for ``sm_90a``, built
 with ``nvcc`` into ``colbert_torch/build/`` at first use and loaded with
-ctypes. It is bound by fp32 operations on the H100 (2*Lq*dim FLOPs per
-36-byte token at the default geometry); the source note there says how its
-design deals with that. The Mosaic workarounds of the TPU kernel (the dim
-permutation, the token-major transpose, the ``Lq % 8`` padding and the
-centroid gather left outside the kernel) have no counterpart here.
+ctypes. :func:`_variant` picks one from the shapes alone: ``"mma"``,
+``stage2_mma_kernel``, runs the dots on the tensor cores (``mma.sync`` in
+3xTF32, which keeps fp32 accuracy) for dim 128 and Lq up to 32 (the
+serving path's shapes) at any nbits and word width, and needs the
+residuals 4-byte aligned (it raises ``ValueError`` otherwise);
+``"simt"``, ``stage2_kernel``, runs fp32 FMAs for every other shape. This
+is a routing by shape, not a fallback: a launch that fails raises and
+nothing retries on the other kernel. Both are bound by operations (2*Lq*dim
+FLOPs per 36-byte token at the default geometry); the source note says how
+each design deals with that. The Mosaic workarounds of the TPU kernel (the
+token-major transpose, the ``Lq % 8`` padding and the centroid gather left
+outside the kernel) have no counterpart here; the dim permutation has one
+in the ``mma`` kernel, chosen for its fragment layout.
 
-``stage2_maxsim`` launches the kernel for CUDA tensors and uses
-:func:`stage2_maxsim_plain` only for CPU tensors; a kernel that fails to
-build or launch raises. ``stage2_maxsim.launches`` counts kernel launches.
+``stage2_maxsim`` launches a kernel for CUDA tensors and uses
+:func:`stage2_maxsim_plain` only for CPU tensors. ``stage2_maxsim.launches``
+counts kernel launches, ``stage2_maxsim.variant_launches`` counts them by
+kernel.
 """
 
 from __future__ import annotations
@@ -37,6 +46,9 @@ __all__ = ["stage2_maxsim", "stage2_maxsim_plain", "build_kernel", "KERNEL_SOURC
 
 NEG = -1e30
 KERNEL_SOURCE = os.path.join(CSRC_DIR, "stage2_maxsim.cu")
+MMA_DIM = 128      # the only dim the mma kernel takes
+MMA_MAX_LQ = 32    # the most query tokens it takes (four n8 tiles)
+_ENTRY = {"mma": "colbert_stage2_maxsim_mma", "simt": "colbert_stage2_maxsim"}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -50,12 +62,13 @@ def build_kernel() -> str:
         so, log = compile_cuda(KERNEL_SOURCE, "libstage2_maxsim.so")
         if _lib is None:
             lib = ctypes.CDLL(so)
-            fn = lib.colbert_stage2_maxsim
-            fn.restype = ctypes.c_int
-            fn.argtypes = (
-                [ctypes.c_void_p] * 5 + [ctypes.c_int]
-                + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-            )
+            for name in _ENTRY.values():
+                fn = getattr(lib, name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = (
+                    [ctypes.c_void_p] * 5 + [ctypes.c_int]
+                    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+                )
             _lib = lib
         return log
 
@@ -121,6 +134,43 @@ def _check(Q, offs, dls, codes, residuals, centroids, bucket_weights, nbits):
         raise ValueError("residuals must hold dim*nbits/8 bytes per code row")
 
 
+def _variant(Lq: int, dim: int, nbits: int, word_bytes: int) -> str:
+    """The kernel for these shapes: ``"mma"`` (tensor cores, 3xTF32) for
+    dim 128 and 1 <= Lq <= 32 at nbits 1/2/4/8 in bytes or 32-bit words,
+    else ``"simt"`` (fp32 FMAs)."""
+    if (dim == MMA_DIM and 0 < Lq <= MMA_MAX_LQ and nbits in (1, 2, 4, 8)
+            and word_bytes in (1, 4)):
+        return "mma"
+    return "simt"
+
+
+def _launch(variant: str, Q, offs, dls, codes, residuals, centroids, bucket_weights,
+            *, nbits: int, max_doclen: int) -> torch.Tensor:
+    """One launch of the named kernel on checked CUDA tensors -> ``(B, NC)``
+    scores; counts it. The wrapper's route is :func:`_variant`'s."""
+    if variant == "mma" and residuals.data_ptr() % 4:
+        raise ValueError(f"residuals are not 4-byte aligned (data_ptr "
+                         f"{residuals.data_ptr():#x}); the mma kernel reads up to 4 bytes at once")
+    if _lib is None:
+        build_kernel()
+    B, Lq, dim = Q.shape
+    NC = offs.shape[1]
+    out = torch.empty((B, NC), dtype=torch.float32, device=Q.device)
+    with torch.cuda.device(Q.device):
+        stream = torch.cuda.current_stream(Q.device).cuda_stream
+        rc = getattr(_lib, _ENTRY[variant])(
+            Q.data_ptr(), offs.data_ptr(), dls.data_ptr(), codes.data_ptr(),
+            residuals.data_ptr(), residuals.element_size(),
+            centroids.data_ptr(), bucket_weights.data_ptr(), out.data_ptr(),
+            B, NC, Lq, dim, nbits, max_doclen, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"stage2_maxsim {variant} kernel launch failed (code {rc})")
+    stage2_maxsim.launches += 1
+    stage2_maxsim.variant_launches[variant] += 1
+    return out
+
+
 def stage2_maxsim(
     Q: torch.Tensor, offs: torch.Tensor, dls: torch.Tensor, codes: torch.Tensor,
     residuals: torch.Tensor, centroids: torch.Tensor, bucket_weights: torch.Tensor,
@@ -130,8 +180,8 @@ def stage2_maxsim(
     token offsets ``offs (B, NC)`` int64 and doclens ``dls (B, NC)`` int32
     over the flat ``codes`` (int32) and packed ``residuals`` (uint8 bytes or
     int32 LE words), ``centroids (K, dim)`` f32 and ``bucket_weights``.
-    CUDA tensors go through the kernel; CPU tensors through the plain
-    version."""
+    CUDA tensors go through the kernel :func:`_variant` picks; CPU tensors
+    through the plain version."""
     _check(Q, offs, dls, codes, residuals, centroids, bucket_weights, nbits)
     if Q.device.type == "cpu":
         return stage2_maxsim_plain(Q, offs, dls, codes, residuals, centroids,
@@ -139,23 +189,11 @@ def stage2_maxsim(
                                    max_doclen=max_doclen)
     if Q.device.type != "cuda":
         raise ValueError(f"stage2_maxsim runs on cuda or cpu, not {Q.device}")
-    if _lib is None:
-        build_kernel()
     B, Lq, dim = Q.shape
-    NC = offs.shape[1]
-    out = torch.empty((B, NC), dtype=torch.float32, device=Q.device)
-    with torch.cuda.device(Q.device):
-        stream = torch.cuda.current_stream(Q.device).cuda_stream
-        rc = _lib.colbert_stage2_maxsim(
-            Q.data_ptr(), offs.data_ptr(), dls.data_ptr(), codes.data_ptr(),
-            residuals.data_ptr(), residuals.element_size(),
-            centroids.data_ptr(), bucket_weights.data_ptr(), out.data_ptr(),
-            B, NC, Lq, dim, nbits, max_doclen, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"stage2_maxsim kernel launch failed (code {rc})")
-    stage2_maxsim.launches += 1
-    return out
+    variant = _variant(Lq, dim, nbits, residuals.element_size())
+    return _launch(variant, Q, offs, dls, codes, residuals, centroids, bucket_weights,
+                   nbits=nbits, max_doclen=max_doclen)
 
 
 stage2_maxsim.launches = 0
+stage2_maxsim.variant_launches = {"mma": 0, "simt": 0}

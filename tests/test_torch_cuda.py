@@ -1,6 +1,7 @@
-"""Tests that need an NVIDIA GPU: the stage-2 CUDA kernel vs its plain
+"""Tests that need an NVIDIA GPU: the stage-2 CUDA kernels vs their plain
 PyTorch version (TF32 off, tolerance 1e-4) on the cases of the CPU parity
-tests; the flash-attention kernel vs its plain version (fp32 inputs to
+tests, each case through the kernel its shapes select (tensor-core ``mma``
+for dim 128 and Lq <= 32, ``simt`` otherwise); the flash-attention kernel vs its plain version (fp32 inputs to
 1e-4; bf16 inputs within 8e-3 * max(1, |plain|), one bf16 rounding step of
 the output, against the plain version on the fp32 upcast of the same
 inputs), each case through the kernel its dtype and head dim select
@@ -34,18 +35,53 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("nbits,word,Lq,Ld,zeros",
-                         CASES + [(8, "uint32", 32, 160, True), (2, "uint32", 45, 160, True)])
+                         CASES + [(8, "uint32", 32, 160, True), (2, "uint32", 45, 160, True),
+                                  (8, "uint8", 32, 48, "last"), (1, "uint32", 32, 160, "full")])
 def test_kernel_matches_plain(cuda_device, nbits, word, Lq, Ld, zeros):
     x = stage2_case(nbits * 7 + Lq, nbits, word, Lq, Ld, zeros, NC=300, K=500,
                     n_tokens=20_000)
     args, kw = port_args(x, cuda_device)
+    variant = fm._variant(Lq, 128, nbits, args[4].element_size())
     before = fm.stage2_maxsim.launches
+    by_variant = dict(fm.stage2_maxsim.variant_launches)
     got = fm.stage2_maxsim(*args, **kw)
     want = fm.stage2_maxsim_plain(*args, **kw)
     torch.cuda.synchronize()
     assert fm.stage2_maxsim.launches == before + 1
+    by_variant[variant] += 1
+    assert fm.stage2_maxsim.variant_launches == by_variant
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=TOL, rtol=0)
     assert (got.cpu().numpy()[x["dls"] == 0] == 0).all()
+
+
+@pytest.mark.cuda
+def test_stage2_routes_by_shape_and_never_retries(cuda_device):
+    # past the mma kernel's limits (Lq > 32, dim != 128): the simt kernel
+    for Lq, dim in ((33, 128), (8, 64)):
+        x = stage2_case(Lq + dim, 2, "uint32", Lq, 40, True, dim=dim, NC=64, K=100,
+                        n_tokens=5_000)
+        args, kw = port_args(x, cuda_device)
+        by_variant = dict(fm.stage2_maxsim.variant_launches)
+        got = fm.stage2_maxsim(*args, **kw)
+        want = fm.stage2_maxsim_plain(*args, **kw)
+        torch.cuda.synchronize()
+        by_variant["simt"] += 1
+        assert fm.stage2_maxsim.variant_launches == by_variant
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=TOL, rtol=0)
+    # byte residuals one byte past 4-byte alignment: the mma kernel refuses
+    # them and nothing runs the simt kernel in its place
+    x = stage2_case(5, 2, "uint8", 32, 40, False, NC=64, K=100, n_tokens=5_000)
+    args, kw = port_args(x, cuda_device)
+    res = args[4]
+    flat = torch.zeros(res.numel() + 1, dtype=res.dtype, device=cuda_device)
+    shifted = flat[1:]
+    shifted.copy_(res)
+    before = fm.stage2_maxsim.launches
+    by_variant = dict(fm.stage2_maxsim.variant_launches)
+    with pytest.raises(ValueError, match="aligned"):
+        fm.stage2_maxsim(*args[:4], shifted, *args[5:], **kw)
+    assert fm.stage2_maxsim.launches == before
+    assert fm.stage2_maxsim.variant_launches == by_variant
 
 
 @pytest.mark.cuda
@@ -76,8 +112,10 @@ def test_device_index_search_runs_the_kernel(cuda_device, tmp_path):
     search = dict(k=10, nprobe=2, ncandidates=512, cell_cap=64, max_candidates=512,
                   stage1_refine=False)
     before = fm.stage2_maxsim.launches
+    mma = fm.stage2_maxsim.variant_launches["mma"]
     pg, sg = gpu.search_Q_batch(Q, **search)
     assert fm.stage2_maxsim.launches == before + 1
+    assert fm.stage2_maxsim.variant_launches["mma"] == mma + 1
     pc, sc = cpu.search_Q_batch(Q, **search)
     np.testing.assert_allclose(sg, sc, atol=TOL, rtol=0)
 

@@ -82,5 +82,25 @@ def test_cpu_tensors_never_count_as_launches():
     x = _inputs(1, 2, "uint32", 8, 16, False)
     args, kw = _port_args(x)
     before = fm.stage2_maxsim.launches
+    by_variant = dict(fm.stage2_maxsim.variant_launches)
     fm.stage2_maxsim(*args, **kw)
     assert fm.stage2_maxsim.launches == before
+    assert fm.stage2_maxsim.variant_launches == by_variant
+
+
+@pytest.mark.parametrize("Lq,dim,nbits,word_bytes,variant", [
+    (32, 128, 2, 4, "mma"),     # the serving path
+    (32, 128, 2, 1, "mma"),
+    (1, 128, 1, 4, "mma"),
+    (13, 128, 4, 1, "mma"),
+    (32, 128, 8, 4, "mma"),
+    (33, 128, 2, 4, "simt"),    # past four n8 tiles of query tokens
+    (45, 128, 4, 4, "simt"),
+    (0, 128, 2, 4, "simt"),
+    (32, 64, 2, 4, "simt"),     # only dim 128 has the mma kernel
+    (32, 32, 2, 1, "simt"),
+    (32, 256, 2, 4, "simt"),
+    (32, 128, 3, 4, "simt"),
+])
+def test_variant_routes_by_shape(Lq, dim, nbits, word_bytes, variant):
+    assert fm._variant(Lq, dim, nbits, word_bytes) == variant

@@ -5,6 +5,8 @@ import pkgutil
 import subprocess
 import sys
 
+import pytest
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -63,3 +65,21 @@ def test_chip_smoke_needs_a_gpu():
                           cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert done.returncode != 0
     assert '"ok"' not in done.stdout
+
+
+@pytest.mark.parametrize("script", ["tune_flash", "tune_stage2"])
+def test_tune_scripts_import_no_jax_and_need_a_gpu(script):
+    """The kernel tuning scripts import no JAX and, without CUDA, exit 2
+    before building anything."""
+    code = (
+        "import sys\n"
+        f"import {script}\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'colbert_tpu')]\n"
+        "import torch\n"
+        f"rc = {script}.main() if not torch.cuda.is_available() else 2\n"
+        "sys.exit(1 if bad else rc)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    done = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert done.returncode == 2, done.stdout + done.stderr
