@@ -218,7 +218,7 @@ def kernel_vs_plain(device) -> dict:
     worst = 0.0
     for i, case in enumerate([main] + edges):
         args, kw = stage2_inputs(rng, device, **case)
-        variant = fm._variant(case["Lq"], case["dim"], case["nbits"], case["word_bytes"])
+        variant = fm._variant(case["Lq"], case["dim"])
         before = dict(fm.stage2_maxsim.variant_launches)
         got = fm.stage2_maxsim(**args, **kw)
         want = fm.stage2_maxsim_plain(**args, **kw)

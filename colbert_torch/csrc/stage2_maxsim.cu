@@ -52,21 +52,22 @@
 // stored in B-fragment order (one conflict-free 16-byte read per lane per
 // n8 tile and k8 step). Warps work alone after the block's one barrier:
 // each takes the block's candidates from a shared counter and walks them
-// kSlices slices at a time, its running max per query column in registers
-// (rows at or past the doclen never enter it), reduced over the 8 row
-// groups and summed over the valid columns when the candidate ends. The
-// next kPrefetch chunks of every row, and the next group's codes, are in
-// flight while a chunk is in the products (a register ring that runs
-// across group and candidate boundaries). A row at or past min(dl,
+// one 16-row slice at a time, its running max per query column in
+// registers (rows at or past the doclen never enter it), reduced over the
+// 8 row groups and summed over the valid columns when the candidate ends.
+// The next kPrefetch chunks of every row, and the next slice's codes, are
+// in flight while a chunk is in the products (a register ring that runs
+// across slice and candidate boundaries). A row at or past min(dl,
 // max_doclen) reads the candidate's first row instead, so nothing past the
 // data is read. What limits it: 16 warps per SM need <= 128 registers,
-// which leaves room for one 16-row slice per Q fragment read (two need
-// ~165 registers and lost), so each fragment feeds 3 products and the
-// shared-memory reads of Q are about as many as the tensor cores' issue
-// slots; mma.sync reaches ~0.65 m16n8k8 per SM per clock on this card,
-// about 300 TFLOP/s of TF32, so the products alone take ~0.31 ms of the
-// serving batch. Blocks are sized so the grid holds ~kBlocksPerSm blocks
-// per SM at the serving batch and still fills the card at B=1.
+// which leaves room for one 16-row slice per Q fragment read (two needed
+// ~165 registers and were slower), so each fragment feeds 3 products and
+// the shared-memory reads of Q are about as many as the tensor cores'
+// issue slots; mma.sync peaks near 0.65 m16n8k8 per SM per clock on the
+// H100, about 300 TFLOP/s of TF32 (PERF.md), so the products alone take
+// ~0.3 ms of the serving batch. Blocks are sized so the grid holds
+// ~kBlocksPerSm blocks per SM at the serving batch and still fills the
+// card at B=1.
 //
 // stage2_kernel<W> (every other shape): fp32 FMAs. One block per (query,
 // candidate) decodes the candidate's tokens a tile at a time into shared
@@ -218,18 +219,14 @@ int launch(const float* Q, const int64_t* offs, const int32_t* dls,
 // stage2_mma_kernel: 3xTF32 on the tensor cores through mma.sync
 // ---------------------------------------------------------------------------
 
-// Block shape: warps per block, 16-row slices per Q fragment read, the
-// blocks per SM the grid aims at, the blocks per SM the registers are
-// budgeted for, and the chunks in flight ahead of the one in the products.
-// The defaults are the fastest of tune_stage2.py's shapes on the H100 (16
-// warps per SM at <= 128 registers; a second slice per fragment needs ~165
-// registers and lost at every budget); that script rebuilds this file with
-// -DSTAGE2_MMA_<NAME> overrides to time others.
+// Block shape: warps per block, the blocks per SM the grid aims at, the
+// blocks per SM the registers are budgeted for, and the chunks in flight
+// ahead of the one in the products. The defaults are the fastest of
+// tune_stage2.py's shapes on the H100 (16 warps per SM at <= 128
+// registers); that script rebuilds this file with -DSTAGE2_MMA_<NAME>
+// overrides to time others.
 #ifndef STAGE2_MMA_WARPS
 #define STAGE2_MMA_WARPS 4
-#endif
-#ifndef STAGE2_MMA_SLICES
-#define STAGE2_MMA_SLICES 1
 #endif
 #ifndef STAGE2_MMA_BLOCKS_PER_SM
 #define STAGE2_MMA_BLOCKS_PER_SM 8
@@ -248,14 +245,12 @@ constexpr int kKS = kMmaDim / 8;           // k8 steps
 constexpr int kChunks = kKS / 2;           // 16-dim chunks: a float4 per lane and row
 constexpr int kMmaWarps = STAGE2_MMA_WARPS;
 constexpr int kMmaThreads = 32 * kMmaWarps;
-constexpr int kSlices = STAGE2_MMA_SLICES;
-constexpr int kGroupRows = 16 * kSlices;
 constexpr int kBlocksPerSm = STAGE2_MMA_BLOCKS_PER_SM;
 constexpr int kMaxPerWarp = 8;  // candidates a warp is given at most
 constexpr int kMaxCandidates = kMmaWarps * kMaxPerWarp;  // per block
 constexpr int kPrefetch = STAGE2_MMA_PREFETCH;  // chunks in flight beside the one in use
 constexpr int kRing = kPrefetch + 1;
-static_assert(kChunks % kRing == 0, "a group's chunk j and the next one's use the same slot");
+static_assert(kChunks % kRing == 0, "a slice's chunk j and the next one's use the same slot");
 
 __device__ __forceinline__ uint32_t to_tf32(float x) {
   uint32_t r;
@@ -315,7 +310,7 @@ __device__ __forceinline__ float bucket_weight(const float* bw_s, uint32_t v, in
 
 // A warp's place in its work: candidate c of the block (-1 when there is
 // none left), its token offset and clamped doclen, and the first row of
-// the current group of kSlices slices.
+// the current 16-row slice.
 struct Cursor {
   int64_t off;
   int c, dl, s0;
@@ -406,53 +401,46 @@ stage2_mma_kernel(const float* __restrict__ Q, const int64_t* __restrict__ offs,
     }
   };
 
-  // The group's rows that the lane holds are s0 + 16 i + g + 8 h. A row at
-  // or past dl reads the candidate's first row instead, so nothing past the
+  // The slice's rows that the lane holds are s0 + g + 8 h. A row at or
+  // past dl reads the candidate's first row instead, so nothing past the
   // data is read, and never enters the max. Per row: its code (loaded one
-  // group ahead), then a pointer to the lane's float4s of its centroid row
+  // slice ahead), then a pointer to the lane's float4s of its centroid row
   // (chunk j at + 4 j) and to its chunk bits (chunk j at + 2 NBITS j bytes).
   const float4* cent4 = reinterpret_cast<const float4*>(centroids) + t;
   const int bit_off = t * NBITS / 2;  // bytes; at nbits 1, lanes 2s and 2s+1 share a byte
   const int bit_sh = NBITS == 1 ? 4 * (t & 1) : 0;
-  auto load_codes = [&](const Cursor& cu, int (&code)[kSlices][2],
-                        const uint8_t* (&bp)[kSlices][2]) {
+  auto load_codes = [&](const Cursor& cu, int (&code)[2], const uint8_t* (&bp)[2]) {
 #pragma unroll
-    for (int i = 0; i < kSlices; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = cu.s0 + 16 * i + g + 8 * h;
-        const int64_t tok = cu.off + (row < cu.dl ? row : 0);
-        code[i][h] = __ldg(codes + tok);
-        bp[i][h] = res + tok * (16 * NBITS) + bit_off;
-      }
+    for (int h = 0; h < 2; ++h) {
+      const int row = cu.s0 + g + 8 * h;
+      const int64_t tok = cu.off + (row < cu.dl ? row : 0);
+      code[h] = __ldg(codes + tok);
+      bp[h] = res + tok * (16 * NBITS) + bit_off;
+    }
   };
-  auto rows_of = [&](const int (&code)[kSlices][2], const float4* (&rp)[kSlices][2]) {
+  auto rows_of = [&](const int (&code)[2], const float4* (&rp)[2]) {
 #pragma unroll
-    for (int i = 0; i < kSlices; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) rp[i][h] = cent4 + static_cast<int64_t>(code[i][h]) * (kMmaDim / 4);
+    for (int h = 0; h < 2; ++h) rp[h] = cent4 + static_cast<int64_t>(code[h]) * (kMmaDim / 4);
   };
-  auto load_chunk = [&](const float4* (&rp)[kSlices][2], const uint8_t* (&bp)[kSlices][2], int j,
-                        float4 (&cv)[kSlices][2], uint32_t (&bv)[kSlices][2]) {
+  auto load_chunk = [&](const float4* (&rp)[2], const uint8_t* (&bp)[2], int j, float4 (&cv)[2],
+                        uint32_t (&bv)[2]) {
 #pragma unroll
-    for (int i = 0; i < kSlices; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        cv[i][h] = __ldg(rp[i][h] + 4 * j);
-        bv[i][h] = load_bits<NBITS>(bp[i][h] + 2 * NBITS * j);
-      }
+    for (int h = 0; h < 2; ++h) {
+      cv[h] = __ldg(rp[h] + 4 * j);
+      bv[h] = load_bits<NBITS>(bp[h] + 2 * NBITS * j);
+    }
   };
 
   Cursor cur;
   fetch(cur);
   if (cur.c < 0) return;
-  int code[kSlices][2];
-  const uint8_t* bp[kSlices][2];
-  const float4* rp[kSlices][2];
+  int code[2];
+  const uint8_t* bp[2];
+  const float4* rp[2];
   load_codes(cur, code, bp);
   rows_of(code, rp);
-  float4 cv[kRing][kSlices][2];
-  uint32_t bv[kRing][kSlices][2];
+  float4 cv[kRing][2];
+  uint32_t bv[kRing][2];
 #pragma unroll
   for (int j = 0; j < kPrefetch; ++j) load_chunk(rp, bp, j, cv[j], bv[j]);
   float mx[kNT][2];
@@ -460,26 +448,21 @@ stage2_mma_kernel(const float* __restrict__ Q, const int64_t* __restrict__ offs,
   for (int nt = 0; nt < kNT; ++nt) mx[nt][0] = mx[nt][1] = -INFINITY;
 
   while (true) {
-    // the next group: its codes now, its first chunk with our last
+    // the next slice: its codes now, its first chunks with our last
     Cursor nx = cur;
-    if (cur.s0 + kGroupRows < cur.dl)
-      nx.s0 += kGroupRows;
+    if (cur.s0 + 16 < cur.dl)
+      nx.s0 += 16;
     else
       fetch(nx);
-    int ncode[kSlices][2];
-    const uint8_t* nbp[kSlices][2];
-    const float4* nrp[kSlices][2];
+    int ncode[2];
+    const uint8_t* nbp[2];
+    const float4* nrp[2];
     if (nx.c >= 0) load_codes(nx, ncode, nbp);
 
-    const int nact = min(kSlices, (cur.dl - cur.s0 + 15) >> 4);  // slices with a row
-    float acc[kSlices][kNT][4];
-    float ss[kSlices][2];
+    float acc[kNT][4];
+    float ss[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < kSlices; ++i) {
-      ss[i][0] = ss[i][1] = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) acc[i][nt][0] = acc[i][nt][1] = acc[i][nt][2] = acc[i][nt][3] = 0.f;
-    }
+    for (int nt = 0; nt < kNT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
 
 #pragma unroll
     for (int j = 0; j < kChunks; ++j) {
@@ -492,38 +475,37 @@ stage2_mma_kernel(const float* __restrict__ Q, const int64_t* __restrict__ offs,
       }
       const int st = j % kRing;
 #pragma unroll
-      for (int i = 0; i < kSlices; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) bv[st][i][h] >>= bit_sh;
+      for (int h = 0; h < 2; ++h) bv[st][h] >>= bit_sh;
 #pragma unroll
       for (int sub = 0; sub < 2; ++sub) {
         const int kk = 2 * j + sub;
         uint4 bq[kNT];
 #pragma unroll
         for (int nt = 0; nt < kNT; ++nt) bq[nt] = qf_s[(nt * kKS + kk) * 32 + lane];
+        // A slice always has a row here, but ptxas cannot tell: this branch
+        // keeps it from hoisting later loads above the step's products. On
+        // the H100 the nbits-2 instantiation without it spills 12 bytes at
+        // 128 registers and takes 0.66 ms, not 0.62 (tune_stage2.py inputs).
+        if (cur.s0 < cur.dl) {
+          const float4 ca = cv[st][0], cb = cv[st][1];
+          const float2 wa = weights2(bv[st][0], sub), wb = weights2(bv[st][1], sub);
+          // a = {(g, h 0), (g+8, h 0), (g, h 1), (g+8, h 1)}: chunk elements 2 sub + h
+          const float e0 = (sub ? ca.z : ca.x) + wa.x;
+          const float e1 = (sub ? cb.z : cb.x) + wb.x;
+          const float e2 = (sub ? ca.w : ca.y) + wa.y;
+          const float e3 = (sub ? cb.w : cb.y) + wb.y;
+          ss[0] = fmaf(e2, e2, fmaf(e0, e0, ss[0]));
+          ss[1] = fmaf(e3, e3, fmaf(e1, e1, ss[1]));
+          uint32_t ahi[4], alo[4];
+          split_tf32_finite(e0, ahi[0], alo[0]);
+          split_tf32_finite(e1, ahi[1], alo[1]);
+          split_tf32_finite(e2, ahi[2], alo[2]);
+          split_tf32_finite(e3, ahi[3], alo[3]);
 #pragma unroll
-        for (int i = 0; i < kSlices; ++i) {
-          if (i < nact) {
-            const float4 ca = cv[st][i][0], cb = cv[st][i][1];
-            const float2 wa = weights2(bv[st][i][0], sub), wb = weights2(bv[st][i][1], sub);
-            // a = {(g, h 0), (g+8, h 0), (g, h 1), (g+8, h 1)}: chunk elements 2 sub + h
-            const float e0 = (sub ? ca.z : ca.x) + wa.x;
-            const float e1 = (sub ? cb.z : cb.x) + wb.x;
-            const float e2 = (sub ? ca.w : ca.y) + wa.y;
-            const float e3 = (sub ? cb.w : cb.y) + wb.y;
-            ss[i][0] = fmaf(e2, e2, fmaf(e0, e0, ss[i][0]));
-            ss[i][1] = fmaf(e3, e3, fmaf(e1, e1, ss[i][1]));
-            uint32_t ahi[4], alo[4];
-            split_tf32_finite(e0, ahi[0], alo[0]);
-            split_tf32_finite(e1, ahi[1], alo[1]);
-            split_tf32_finite(e2, ahi[2], alo[2]);
-            split_tf32_finite(e3, ahi[3], alo[3]);
-#pragma unroll
-            for (int nt = 0; nt < kNT; ++nt) {
-              mma_tf32(acc[i][nt], alo, bq[nt].x, bq[nt].y);
-              mma_tf32(acc[i][nt], ahi, bq[nt].z, bq[nt].w);
-              mma_tf32(acc[i][nt], ahi, bq[nt].x, bq[nt].y);
-            }
+          for (int nt = 0; nt < kNT; ++nt) {
+            mma_tf32(acc[nt], alo, bq[nt].x, bq[nt].y);
+            mma_tf32(acc[nt], ahi, bq[nt].z, bq[nt].w);
+            mma_tf32(acc[nt], ahi, bq[nt].x, bq[nt].y);
           }
         }
       }
@@ -531,34 +513,28 @@ stage2_mma_kernel(const float* __restrict__ Q, const int64_t* __restrict__ offs,
 
     // scale each row by 1 / max(|e|, 1e-12) and fold the valid rows into
     // the running max of each query column
+    float s0 = ss[0], s1 = ss[1];
+    s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+    s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+    const float inv0 = 1.f / fmaxf(sqrtf(s0), 1e-12f);
+    const float inv1 = 1.f / fmaxf(sqrtf(s1), 1e-12f);
+    const bool v0 = cur.s0 + g < cur.dl, v1 = cur.s0 + g + 8 < cur.dl;
 #pragma unroll
-    for (int i = 0; i < kSlices; ++i) {
-      if (i < nact) {
-        float s0 = ss[i][0], s1 = ss[i][1];
-        s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
-        s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
-        s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
-        s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
-        const float inv0 = 1.f / fmaxf(sqrtf(s0), 1e-12f);
-        const float inv1 = 1.f / fmaxf(sqrtf(s1), 1e-12f);
-        const int row = cur.s0 + 16 * i + g;
-        const bool v0 = row < cur.dl, v1 = row + 8 < cur.dl;
-#pragma unroll
-        for (int nt = 0; nt < kNT; ++nt) {
-          if (v0) {
-            mx[nt][0] = fmaxf(mx[nt][0], acc[i][nt][0] * inv0);
-            mx[nt][1] = fmaxf(mx[nt][1], acc[i][nt][1] * inv0);
-          }
-          if (v1) {
-            mx[nt][0] = fmaxf(mx[nt][0], acc[i][nt][2] * inv1);
-            mx[nt][1] = fmaxf(mx[nt][1], acc[i][nt][3] * inv1);
-          }
-        }
+    for (int nt = 0; nt < kNT; ++nt) {
+      if (v0) {
+        mx[nt][0] = fmaxf(mx[nt][0], acc[nt][0] * inv0);
+        mx[nt][1] = fmaxf(mx[nt][1], acc[nt][1] * inv0);
+      }
+      if (v1) {
+        mx[nt][0] = fmaxf(mx[nt][0], acc[nt][2] * inv1);
+        mx[nt][1] = fmaxf(mx[nt][1], acc[nt][3] * inv1);
       }
     }
 
-    if (cur.s0 + kGroupRows >= cur.dl) {
-      // the candidate's last group: max over the 8 row groups, sum over
+    if (cur.s0 + 16 >= cur.dl) {
+      // the candidate's last slice: max over the 8 row groups, sum over
       // the query columns (8 nt + 2 t + h) below Lq
       float s = 0.f;
 #pragma unroll
@@ -579,12 +555,10 @@ stage2_mma_kernel(const float* __restrict__ Q, const int64_t* __restrict__ offs,
     if (nx.c < 0) break;
     cur = nx;
 #pragma unroll
-    for (int i = 0; i < kSlices; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        rp[i][h] = nrp[i][h];
-        bp[i][h] = nbp[i][h];
-      }
+    for (int h = 0; h < 2; ++h) {
+      rp[h] = nrp[h];
+      bp[h] = nbp[h];
+    }
   }
 }
 

@@ -54,6 +54,20 @@ _lib = None
 _lib_lock = threading.Lock()
 
 
+def load_library(so: str) -> ctypes.CDLL:
+    """Load a built kernel library and declare its entry points' C
+    signature (both kernels take the same arguments)."""
+    lib = ctypes.CDLL(so)
+    for name in _ENTRY.values():
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int]
+            + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        )
+    return lib
+
+
 def build_kernel() -> str:
     """Build (once per source change) and load the kernel library -> the
     compiler's output ("" when the library was already up to date)."""
@@ -61,15 +75,7 @@ def build_kernel() -> str:
     with _lib_lock:
         so, log = compile_cuda(KERNEL_SOURCE, "libstage2_maxsim.so")
         if _lib is None:
-            lib = ctypes.CDLL(so)
-            for name in _ENTRY.values():
-                fn = getattr(lib, name)
-                fn.restype = ctypes.c_int
-                fn.argtypes = (
-                    [ctypes.c_void_p] * 5 + [ctypes.c_int]
-                    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-                )
-            _lib = lib
+            _lib = load_library(so)
         return log
 
 
@@ -134,31 +140,32 @@ def _check(Q, offs, dls, codes, residuals, centroids, bucket_weights, nbits):
         raise ValueError("residuals must hold dim*nbits/8 bytes per code row")
 
 
-def _variant(Lq: int, dim: int, nbits: int, word_bytes: int) -> str:
-    """The kernel for these shapes: ``"mma"`` (tensor cores, 3xTF32) for
-    dim 128 and 1 <= Lq <= 32 at nbits 1/2/4/8 in bytes or 32-bit words,
-    else ``"simt"`` (fp32 FMAs)."""
-    if (dim == MMA_DIM and 0 < Lq <= MMA_MAX_LQ and nbits in (1, 2, 4, 8)
-            and word_bytes in (1, 4)):
-        return "mma"
-    return "simt"
+def _variant(Lq: int, dim: int) -> str:
+    """The kernel for inputs that passed :func:`_check`: ``"mma"`` (tensor
+    cores, 3xTF32) for dim 128 and 1 <= Lq <= 32, at every nbits and word
+    width ``_check`` lets through, else ``"simt"`` (fp32 FMAs)."""
+    return "mma" if dim == MMA_DIM and 0 < Lq <= MMA_MAX_LQ else "simt"
 
 
 def _launch(variant: str, Q, offs, dls, codes, residuals, centroids, bucket_weights,
-            *, nbits: int, max_doclen: int) -> torch.Tensor:
+            *, nbits: int, max_doclen: int, lib: ctypes.CDLL | None = None) -> torch.Tensor:
     """One launch of the named kernel on checked CUDA tensors -> ``(B, NC)``
-    scores; counts it. The wrapper's route is :func:`_variant`'s."""
+    scores; counts it. ``lib`` is a library from :func:`load_library`
+    (default: the one :func:`build_kernel` builds from ``KERNEL_SOURCE``).
+    The wrapper's route is :func:`_variant`'s."""
     if variant == "mma" and residuals.data_ptr() % 4:
         raise ValueError(f"residuals are not 4-byte aligned (data_ptr "
                          f"{residuals.data_ptr():#x}); the mma kernel reads up to 4 bytes at once")
-    if _lib is None:
-        build_kernel()
+    if lib is None:
+        if _lib is None:
+            build_kernel()
+        lib = _lib
     B, Lq, dim = Q.shape
     NC = offs.shape[1]
     out = torch.empty((B, NC), dtype=torch.float32, device=Q.device)
     with torch.cuda.device(Q.device):
         stream = torch.cuda.current_stream(Q.device).cuda_stream
-        rc = getattr(_lib, _ENTRY[variant])(
+        rc = getattr(lib, _ENTRY[variant])(
             Q.data_ptr(), offs.data_ptr(), dls.data_ptr(), codes.data_ptr(),
             residuals.data_ptr(), residuals.element_size(),
             centroids.data_ptr(), bucket_weights.data_ptr(), out.data_ptr(),
@@ -190,9 +197,8 @@ def stage2_maxsim(
     if Q.device.type != "cuda":
         raise ValueError(f"stage2_maxsim runs on cuda or cpu, not {Q.device}")
     B, Lq, dim = Q.shape
-    variant = _variant(Lq, dim, nbits, residuals.element_size())
-    return _launch(variant, Q, offs, dls, codes, residuals, centroids, bucket_weights,
-                   nbits=nbits, max_doclen=max_doclen)
+    return _launch(_variant(Lq, dim), Q, offs, dls, codes, residuals, centroids,
+                   bucket_weights, nbits=nbits, max_doclen=max_doclen)
 
 
 stage2_maxsim.launches = 0

@@ -41,7 +41,7 @@ def test_kernel_matches_plain(cuda_device, nbits, word, Lq, Ld, zeros):
     x = stage2_case(nbits * 7 + Lq, nbits, word, Lq, Ld, zeros, NC=300, K=500,
                     n_tokens=20_000)
     args, kw = port_args(x, cuda_device)
-    variant = fm._variant(Lq, 128, nbits, args[4].element_size())
+    variant = fm._variant(Lq, 128)
     before = fm.stage2_maxsim.launches
     by_variant = dict(fm.stage2_maxsim.variant_launches)
     got = fm.stage2_maxsim(*args, **kw)

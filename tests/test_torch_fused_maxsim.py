@@ -88,19 +88,19 @@ def test_cpu_tensors_never_count_as_launches():
     assert fm.stage2_maxsim.variant_launches == by_variant
 
 
-@pytest.mark.parametrize("Lq,dim,nbits,word_bytes,variant", [
-    (32, 128, 2, 4, "mma"),     # the serving path
-    (32, 128, 2, 1, "mma"),
-    (1, 128, 1, 4, "mma"),
-    (13, 128, 4, 1, "mma"),
-    (32, 128, 8, 4, "mma"),
-    (33, 128, 2, 4, "simt"),    # past four n8 tiles of query tokens
-    (45, 128, 4, 4, "simt"),
-    (0, 128, 2, 4, "simt"),
-    (32, 64, 2, 4, "simt"),     # only dim 128 has the mma kernel
-    (32, 32, 2, 1, "simt"),
-    (32, 256, 2, 4, "simt"),
-    (32, 128, 3, 4, "simt"),
+@pytest.mark.parametrize("Lq,dim,variant", [
+    (32, 128, "mma"),     # the serving path
+    (1, 128, "mma"),
+    (8, 128, "mma"),
+    (13, 128, "mma"),
+    (31, 128, "mma"),
+    (33, 128, "simt"),    # past four n8 tiles of query tokens
+    (45, 128, "simt"),
+    (0, 128, "simt"),
+    (32, 64, "simt"),     # only dim 128 has the mma kernel
+    (32, 32, "simt"),
+    (32, 256, "simt"),
+    (8, 96, "simt"),
 ])
-def test_variant_routes_by_shape(Lq, dim, nbits, word_bytes, variant):
-    assert fm._variant(Lq, dim, nbits, word_bytes) == variant
+def test_variant_routes_by_shape(Lq, dim, variant):
+    assert fm._variant(Lq, dim) == variant

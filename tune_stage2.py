@@ -4,26 +4,20 @@
     python3 tune_stage2.py
 
 Rebuilds ``colbert_torch/csrc/stage2_maxsim.cu`` once per shape with
-``-DSTAGE2_MMA_WARPS=<w> -DSTAGE2_MMA_SLICES=<m> -DSTAGE2_MMA_BLOCKS_PER_SM=<n>
--DSTAGE2_MMA_MINB=<b> -DSTAGE2_MMA_PREFETCH=<p>`` (warps per block, 16-row
-slices per Q fragment read, blocks per SM the grid aims at, blocks per SM
-the registers are budgeted for, chunks loaded ahead), all nvcc runs started
-together, into
-``colbert_torch/build/tune/``. On serving-like inputs (B=32 queries x
-NC=1024 candidates, Lq=32, dim=128, nbits=2 in 32-bit words, K=32768,
-doclens uniform in [60, 160], ~110 on average as in the serving index)
-it prints ptxas's registers and spills of the nbits-2 instantiation,
+``-DSTAGE2_MMA_WARPS=<w> -DSTAGE2_MMA_BLOCKS_PER_SM=<n> -DSTAGE2_MMA_MINB=<b>
+-DSTAGE2_MMA_PREFETCH=<p>`` (warps per block, blocks per SM the grid aims
+at, blocks per SM the registers are budgeted for, chunks loaded ahead), all
+nvcc runs started together, into ``colbert_torch/build/tune/``. On
+serving-like inputs (B=32 queries x NC=1024 candidates, Lq=32, dim=128,
+nbits=2 in 32-bit words, K=32768, doclens uniform in [60, 160], ~110 on
+average as in the serving index) it prints ptxas's registers and spills of the nbits-2 instantiation,
 checks each shape against the plain version (1e-4) and times it with
 CUDA events, twice, beside the fp32-FMA kernel (``simt``) in the same
-run. The defaults in the source are the fastest shapes it found. First it
-measures the peak rate of ``mma.sync`` on the card: one block per SM of 4,
-8 or 16 warps, each issuing independent m16n8k8 TF32 (and, for scale,
-m16n8k16 bf16) products, timed with ``clock64`` and CUDA events.
+run. The defaults in the source are the fastest shapes it found.
 """
 
 from __future__ import annotations
 
-import ctypes
 import os
 import subprocess
 import sys
@@ -33,86 +27,20 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-# (warps, slices, blocks per SM aimed at, min blocks, prefetch); the first is the default
-SHAPES = [(4, 1, 8, 4, 3), (4, 1, 8, 4, 1), (4, 1, 8, 3, 3), (4, 1, 8, 5, 3), (4, 1, 4, 4, 3),
-          (4, 1, 16, 4, 3), (8, 1, 8, 2, 3), (2, 1, 8, 8, 3), (4, 2, 8, 3, 1), (4, 2, 8, 4, 1)]
+# (warps, blocks per SM aimed at, min blocks, prefetch); the first is the default
+SHAPES = [(4, 8, 4, 3), (4, 8, 4, 1), (4, 8, 3, 3), (4, 8, 5, 3), (4, 4, 4, 3), (4, 16, 4, 3),
+          (8, 8, 2, 3), (2, 8, 8, 3)]
 TOL = 1e-4
-MMA_RATE_SRC = r"""
-#include <cstdint>
-#include <cstdio>
-#include <cuda_runtime.h>
-template <int KIND>
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  if (KIND == 0)
-    asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
-                 "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};" : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]),
-                 "+f"(d[3]) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  else
-    asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-                 "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};" : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]),
-                 "+f"(d[3]) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-template <int KIND, int CHAINS>
-__global__ void bench(float* out, int iters, long long* cyc) {
-  uint32_t a[4] = {threadIdx.x * 3u, threadIdx.x * 5u, threadIdx.x * 7u, threadIdx.x};
-  float acc[CHAINS][4] = {};
-  long long t0 = clock64();
-  for (int i = 0; i < iters; ++i)
-#pragma unroll
-    for (int j = 0; j < CHAINS; ++j) mma<KIND>(acc[j], a, a[0] + j, a[1]);
-  long long t1 = clock64();
-  float s = 0.f;
-  for (int j = 0; j < CHAINS; ++j) s += acc[j][0] + acc[j][1] + acc[j][2] + acc[j][3];
-  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
-  if ((threadIdx.x & 31) == 0) cyc[blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32] = t1 - t0;
-}
-template <int KIND, int CHAINS>
-void run(const char* name, int warps, int sms) {
-  const int iters = 4096;
-  float* out;
-  long long* cyc;
-  cudaMalloc(&out, sizeof(float) * sms * warps * 32);
-  cudaMalloc(&cyc, sizeof(long long) * sms * warps);
-  bench<KIND, CHAINS><<<sms, warps * 32>>>(out, iters, cyc);
-  cudaEvent_t e0, e1;
-  cudaEventCreate(&e0);
-  cudaEventCreate(&e1);
-  cudaEventRecord(e0);
-  bench<KIND, CHAINS><<<sms, warps * 32>>>(out, iters, cyc);
-  cudaEventRecord(e1);
-  cudaEventSynchronize(e1);
-  float ms;
-  cudaEventElapsedTime(&ms, e0, e1);
-  long long* h = new long long[sms * warps];
-  cudaMemcpy(h, cyc, sizeof(long long) * sms * warps, cudaMemcpyDeviceToHost);
-  long long mx = 0;
-  for (int i = 0; i < sms * warps; ++i) mx = h[i] > mx ? h[i] : mx;
-  const double per_sm = double(warps) * iters * CHAINS;
-  printf("[tune] mma.sync %s, %d warps per SM, %d independent accumulators each: %.3f per SM "
-         "per clock, %.1f TFLOP/s\n", name, warps, CHAINS, per_sm / mx,
-         per_sm * sms * (KIND == 0 ? 2048.0 : 4096.0) / (ms * 1e9));
-  cudaFree(out);
-  cudaFree(cyc);
-  delete[] h;
-}
-int main() {
-  int sms;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, 0);
-  for (int w : {4, 8, 16}) run<0, 4>("m16n8k8 tf32", w, sms);
-  run<1, 8>("m16n8k16 bf16", 16, sms);
-  return cudaDeviceSynchronize() != cudaSuccess;
-}
-"""
 
 
 def build(shape, out_dir):
     from colbert_torch.ops import fused_maxsim as fm
     from colbert_torch.utils.build import NVCC_FLAGS, _nvcc
 
-    warps, slices, per_sm, minb, pf = shape
-    so = os.path.join(out_dir, "libstage2_{}_{}_{}_{}_{}.so".format(*shape))
+    warps, per_sm, minb, pf = shape
+    so = os.path.join(out_dir, "libstage2_{}_{}_{}_{}.so".format(*shape))
     done = subprocess.run(
-        [_nvcc()] + NVCC_FLAGS + [f"-DSTAGE2_MMA_WARPS={warps}", f"-DSTAGE2_MMA_SLICES={slices}",
+        [_nvcc()] + NVCC_FLAGS + [f"-DSTAGE2_MMA_WARPS={warps}",
                                   f"-DSTAGE2_MMA_BLOCKS_PER_SM={per_sm}",
                                   f"-DSTAGE2_MMA_MINB={minb}", f"-DSTAGE2_MMA_PREFETCH={pf}",
                                   "-o", so, fm.KERNEL_SOURCE],
@@ -124,20 +52,6 @@ def build(shape, out_dir):
                  for i, line in enumerate(lines)
                  if "Function properties" in line and "stage2_mma_kernelILi2E" in line), "")
     return so, info
-
-
-def mma_peak(out_dir) -> None:
-    """Builds and runs the mma.sync rate probe (MMA_RATE_SRC)."""
-    from colbert_torch.utils.build import _nvcc
-
-    src = os.path.join(out_dir, "mma_rate.cu")
-    exe = os.path.join(out_dir, "mma_rate")
-    with open(src, "w") as f:
-        f.write(MMA_RATE_SRC)
-    subprocess.run([_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-o", exe, src],
-                   check=True, capture_output=True, text=True)
-    done = subprocess.run([exe], check=True, capture_output=True, text=True)
-    print(done.stdout.strip())
 
 
 def time_ms(fn, reps: int = 20) -> float:
@@ -196,38 +110,21 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True, text=True)
     print(f"[tune] {done.stdout.strip()}; {len(SHAPES)} builds in "
           f"{time.perf_counter() - t0:.1f}s")
-    mma_peak(out_dir)
 
     args, kw = serving_like_inputs(torch.device("cuda"))
     want = fm.stage2_maxsim_plain(**args, **kw)
     simt = lambda: fm._launch("simt", **args, **kw)  # noqa: E731
     print(f"[tune] B=32 NC=1024 Lq=32 dim=128 nbits=2 tokens={int(args['dls'].sum())}: "
           f"simt_ms={time_ms(simt):.4f}")
-    B, Lq, dim = args["Q"].shape
-    NC = args["offs"].shape[1]
     ok_all = True
     for shape, (so, info) in zip(SHAPES, built):
-        fn = ctypes.CDLL(so).colbert_stage2_maxsim_mma
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 3
-                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-        out = torch.empty((B, NC), device="cuda")
-
-        def run():
-            rc = fn(*(args[k].data_ptr() for k in ("Q", "offs", "dls", "codes", "residuals")),
-                    4, args["centroids"].data_ptr(), args["bucket_weights"].data_ptr(),
-                    out.data_ptr(), B, NC, Lq, dim, kw["nbits"], kw["max_doclen"],
-                    torch.cuda.current_stream().cuda_stream)
-            if rc:
-                raise RuntimeError(f"launch failed (code {rc})")
-
-        run()
-        torch.cuda.synchronize()
-        err = float((out - want).abs().max())
+        lib = fm.load_library(so)
+        run = lambda: fm._launch("mma", **args, **kw, lib=lib)  # noqa: E731
+        err = float((run() - want).abs().max())
         ok = bool(np.isfinite(err) and err <= TOL)
         ok_all &= ok
         t1, t2 = time_ms(run), time_ms(run)
-        print("[tune] warps={} slices={} blocks_per_sm={} minb={} prefetch={}: ".format(*shape)
+        print("[tune] warps={} blocks_per_sm={} minb={} prefetch={}: ".format(*shape)
               + f"kernel_ms={t1:.4f},{t2:.4f} max_abs_err={err:.3e} within {TOL}: {ok} | {info}")
     print(f"[tune] simt_ms={time_ms(simt):.4f} (again)")
     return 0 if ok_all else 1
