@@ -29,6 +29,22 @@
    in turns with CUDA events, beside both bounds (3 TF32 products per
    fp32 product at the TF32 tensor-core peak; fp32 FMAs at the fp32 peak);
    then both kernels at B = 1, 8 and 32 queries x 1024 candidates.
+   On the same index and searcher:
+   - ``[serve-batcher]``: 256 single queries from 16 threads through a
+     ``BatchingSearcher`` (max_batch 32, max_wait 5 ms, two batches in
+     flight); every future resolves, each result equals a direct
+     ``search_batch`` of the batch it was served in (up to ties, 1e-4),
+     fewer batches than queries, none above 32; prints queries/s;
+   - ``[serve-http]``: ``make_server`` on a free port, 128 concurrent
+     ``POST /search`` from a thread pool plus one ``/search_batch``,
+     ``/health`` and ``/stats``; every reply 200 and equal to direct search
+     as above; prints requests/s (information);
+   - ``[tune]``: the exact oracle (``exhaustive_scores``) for 32 queries,
+     timed, and held against the funnel's stage-2 score of every pid it
+     returns (1e-4, TF32 off); ``tune_operating_point`` on the default grid
+     at balance caps 1024 and 2048 with two timed repetitions, the table
+     printed, the knobs restored after the sweep, ``apply`` then a search.
+   Every stage-2 launch of these phases is checked to be ``mma``.
 4. ``[flash]``: holds both flash-attention kernels against their plain
    version (the materialized fp32 softmax), each case checked to have run
    the kernel its dtype and head dim select (``mma``, tensor cores, for
@@ -58,8 +74,18 @@
    built index (each query the first 40 words of a passage) through the
    ``mma`` stage-2 kernel (checked); prints the top-1 self-retrieval rate
    (random weights: information only).
-7. Prints the card's name and power limit, a ``kernels`` JSON line, and as
-   the last line ``{"ok": true, "device": {...}}``.
+   ``[update]``: the built index served through a ``BatchingSearcher``;
+   ``IndexUpdater.add`` of 2,000 more passages (new pids 20,000-21,999,
+   plan, doclens and IVF consistent, 12 flash launches per encoded batch,
+   all ``mma``), ``remove`` of 1,000 pids (100 of them added) and a
+   ``swap`` to the reloaded searcher (queries of removed passages never
+   return one through the batcher), ``compact`` (no pending journal, 21,000
+   documents, no tombstones; the survivors' results equal the pre-compact
+   ones under the pid map, scores to 1e-4) and ``evaluate`` with
+   self-retrieval qrels (information); prints the seconds of each step.
+7. Prints the card's name and power limit, a ``kernels`` JSON line (each
+   kernel's launches on the main path and by path), and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. Without a GPU, or outside
 a checkout of the repository, it exits non-zero at once.
@@ -67,12 +93,16 @@ a checkout of the repository, it exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
+import urllib.error
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -91,6 +121,12 @@ BUILD_MEAN_WORDS = 450
 IN_SITU_TOL = 5e-4          # tests/test_flash_attention.py:72
 IN_SITU_MIN_COS = 0.999     # bf16 embeddings with vs without the kernel
 SWEEP_ROWS = 65_536         # B*S of each [flash] sweep shape
+BATCHER_QUERIES = 256       # [serve-batcher]: single queries from 16 threads
+BATCHER_THREADS = 16
+HTTP_REQUESTS = 128         # [serve-http]: concurrent POST /search
+TUNE_QUERIES = 32           # [tune]: the oracle's and the sweep's sample
+UPDATE_ADD = 2_000          # [update]: passages added, then pids removed
+UPDATE_REMOVE = 1_000
 
 
 class SmokeFailure(Exception):
@@ -417,7 +453,7 @@ def main_path(device, *, n_passages: int, bert_cfg, index_dir: str,
     timing = time_stage2(recorded["args"], recorded["kw"]) if device.type == "cuda" else {}
     return dict(qps=qps, stream_qps=batch * n_batches / dt_stream,
                 launches=launches, by_variant=by_variant, stages_ms=stages,
-                rescore_err=err, encoder=enc, **timing)
+                rescore_err=err, encoder=enc, searcher=searcher, n_words=n_words, **timing)
 
 
 def device_profile(fn) -> dict:
@@ -640,15 +676,10 @@ def flash_in_situ(enc, batch) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def build_path(enc, passages, index_dir: str) -> dict:
-    """``Indexer.index`` on ``passages``: phases, plan, artifact checks and
-    the flash launches against the encoded batches."""
-    import torch
-
-    from colbert_torch.indexing.builder import Indexer
-    from colbert_torch.ops import flash_attention as fa
-    from colbert_torch.storage import format as fmt
-
+@contextlib.contextmanager
+def counted_doc_batches(enc):
+    """Count the encoder's doc batches while the block runs -> a dict of
+    batches, flash-routed batches and padded token rows."""
     seen = {"batches": 0, "flash_batches": 0, "rows": 0}
     doc_batches = enc._doc_batches
 
@@ -660,6 +691,21 @@ def build_path(enc, passages, index_dir: str) -> dict:
             yield item
 
     enc._doc_batches = counting
+    try:
+        yield seen
+    finally:
+        del enc._doc_batches
+
+
+def build_path(enc, passages, index_dir: str) -> dict:
+    """``Indexer.index`` on ``passages``: phases, plan, artifact checks and
+    the flash launches against the encoded batches."""
+    import torch
+
+    from colbert_torch.indexing.builder import Indexer
+    from colbert_torch.ops import flash_attention as fa
+    from colbert_torch.storage import format as fmt
+
     shutil.rmtree(index_dir, ignore_errors=True)
     dev = enc.device
     if dev.type == "cuda":
@@ -668,10 +714,8 @@ def build_path(enc, passages, index_dir: str) -> dict:
     fa.flash_attention.launches = 0
     fa.flash_attention.variant_launches.update(mma=0, simt=0)
     t0 = time.perf_counter()
-    try:
+    with counted_doc_batches(enc) as seen:
         Indexer(enc.config, encoder=enc, collection=passages, device=dev).index(index_dir)
-    finally:
-        enc._doc_batches = doc_batches
     wall = time.perf_counter() - t0
     launches = fa.flash_attention.launches
     by_variant = dict(fa.flash_attention.variant_launches)
@@ -780,6 +824,387 @@ def build_search(enc, passages, index_dir: str, *, batch: int = BATCH) -> dict:
     return dict(search_launches=launches, self_top1=hits / (2 * batch))
 
 
+# ---------------------------------------------------------------------------
+# the life of a live index: serving fronts, the tuner, the updater
+# ---------------------------------------------------------------------------
+
+
+def stage2_counts() -> dict:
+    from colbert_torch.ops import fused_maxsim as fm
+
+    return dict(fm.stage2_maxsim.variant_launches, launches=fm.stage2_maxsim.launches)
+
+
+def reset_counts() -> None:
+    from colbert_torch.ops import flash_attention as fa
+    from colbert_torch.ops import fused_maxsim as fm
+
+    fm.stage2_maxsim.launches = 0
+    fm.stage2_maxsim.variant_launches.update(mma=0, simt=0)
+    fa.flash_attention.launches = 0
+    fa.flash_attention.variant_launches.update(mma=0, simt=0)
+
+
+def check_stage2_all_mma(device, counts: dict, phase: str) -> None:
+    """On the card every stage-2 launch of a phase is the ``mma`` kernel."""
+    if device.type == "cuda":
+        check(counts["launches"] > 0 and counts["mma"] == counts["launches"]
+              and counts["simt"] == 0, f"{phase}: stage-2 launches by kernel {counts}")
+
+
+@contextlib.contextmanager
+def recorded_batches(searcher):
+    """Record the queries of every ``launch_search`` on ``searcher`` while
+    the block runs (the batches a serving front formed), so each result can
+    be held against a direct ``search_batch`` of the same batch."""
+    batches = []
+    launch = searcher.launch_search
+
+    def recording(queries, k=10):
+        batches.append(list(queries))
+        return launch(queries, k)
+
+    searcher.launch_search = recording
+    try:
+        yield batches
+    finally:
+        del searcher.launch_search
+
+
+def check_against_direct(searcher, batches, results: dict, phase: str, k: int = 10) -> int:
+    """Every served result equals, up to ties at TOL, a direct
+    ``search_batch`` of the batch it was served in -> the batches checked."""
+    for batch in batches:
+        dp, ds = searcher.search_batch(batch, k=k)
+        for i, q in enumerate(batch):
+            p, s = results[q]
+            why = agree_up_to_ties(np.asarray(p)[None], np.asarray(s, np.float32)[None],
+                                   dp[i:i + 1], ds[i:i + 1], TOL)
+            check(why is None, f"{phase}: query {q!r} differs from direct search: {why}")
+    return len(batches)
+
+
+def unique_queries(seed: int, n: int, n_words: int) -> list[str]:
+    queries = synthetic_queries(np.random.default_rng(seed), n, n_words)
+    check(len(set(queries)) == n, "synthetic queries repeat")
+    return queries
+
+
+def serve_batcher(searcher, n_words: int) -> dict:
+    """[serve-batcher]: BATCHER_QUERIES single queries from BATCHER_THREADS
+    threads through a BatchingSearcher (max_batch 32, max_wait 5 ms, two
+    batches in flight); every future resolves, each result equals a direct
+    search of the batch it was served in, and the batcher coalesced."""
+    from colbert_torch.serving import BatchingSearcher
+
+    queries = unique_queries(11, BATCHER_QUERIES, n_words)
+    results, errors = {}, []
+    reset_counts()
+    with recorded_batches(searcher) as batches:
+        batcher = BatchingSearcher(searcher, max_batch=BATCH, max_wait_ms=5, max_inflight=2)
+        try:
+            def client(i):
+                futs = [(q, batcher.submit(q, k=10)) for q in queries[i::BATCHER_THREADS]]
+                for q, f in futs:
+                    try:
+                        results[q] = f.result(timeout=600)
+                    except Exception as e:  # counted and reported below
+                        errors.append(f"{q!r}: {e!r}")
+
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(BATCHER_THREADS) as ex:
+                list(ex.map(client, range(BATCHER_THREADS)))
+            dt = time.perf_counter() - t0
+            stats = dict(batcher.stats)
+        finally:
+            batcher.close()
+    counts = stage2_counts()
+    print(f"[serve-batcher] {len(queries)} queries from {BATCHER_THREADS} threads in {dt:.4f}s "
+          f"-> {len(queries) / dt:.2f} queries/s in process; stats {stats}; batch sizes "
+          f"{[len(b) for b in batches]}; stage-2 launches {counts}; failed futures "
+          f"{len(errors)}")
+    check(not errors, f"serve-batcher: failed futures {errors[:3]}")
+    check(len(results) == len(queries), "serve-batcher: a query got no result")
+    check(stats["queries"] == len(queries) and stats["batches"] < len(queries)
+          and stats["max_batch_seen"] <= BATCH, f"serve-batcher: stats {stats}")
+    check_stage2_all_mma(searcher.device, counts, "serve-batcher")
+    n = check_against_direct(searcher, batches, results, "serve-batcher")
+    # information: the same queries in fixed batches of 32
+    same = 0
+    for i in range(0, len(queries), BATCH):
+        dp, ds = searcher.search_batch(queries[i:i + BATCH], k=10)
+        same += sum(agree_up_to_ties(np.asarray(results[q][0])[None],
+                                     np.asarray(results[q][1])[None],
+                                     dp[j:j + 1], ds[j:j + 1], TOL) is None
+                    for j, q in enumerate(queries[i:i + BATCH]))
+    print(f"[serve-batcher] every result equals direct search_batch of its batch up to ties "
+          f"at {TOL} ({n} batches); against fixed batches of {BATCH}: {same}/{len(queries)} "
+          f"agree (information)")
+    return dict(batcher_qps=len(queries) / dt, batcher_launches=counts["launches"],
+                batcher_batches=stats["batches"])
+
+
+def _http(port: int, path: str, obj=None):
+    """-> (status, decoded JSON or the error text) for one request."""
+    data = None if obj is None else json.dumps(obj).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode(errors="replace")
+    except Exception as e:  # a reset or refused connection: reported, fails the phase
+        return None, repr(e)
+
+
+def serve_http(searcher, n_words: int) -> dict:
+    """[serve-http]: HTTP_REQUESTS concurrent POST /search from a thread pool
+    through ``make_server`` (stdlib HTTP, the batcher behind it), then one
+    /search_batch, /health and /stats; every reply 200 and equal to a direct
+    search of the batch it was served in."""
+    from colbert_torch.serving.http import make_server
+
+    queries = unique_queries(12, HTTP_REQUESTS + 8, n_words)
+    single, multi = queries[:HTTP_REQUESTS], queries[HTTP_REQUESTS:]
+    reset_counts()
+    with recorded_batches(searcher) as batches:
+        server = make_server(searcher, port=0, max_batch=BATCH, max_wait_ms=5, max_inflight=2)
+        port = server.server_address[1]
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(HTTP_REQUESTS) as ex:
+                replies = list(ex.map(lambda q: _http(port, "/search", {"query": q, "k": 10}),
+                                      single))
+            dt = time.perf_counter() - t0
+            batch_reply = _http(port, "/search_batch", {"queries": multi, "k": 10})
+            health = _http(port, "/health")
+            stats = _http(port, "/stats")
+        finally:
+            server.shutdown()
+            server.batcher.close()
+            thread.join(timeout=60)
+    counts = stage2_counts()
+    codes = [r[0] for r in replies] + [batch_reply[0], health[0], stats[0]]
+    failed = [(c, r) for c, r in replies + [batch_reply, health, stats] if c != 200]
+    print(f"[serve-http] {len(single)} concurrent POST /search in {dt:.4f}s -> "
+          f"{len(single) / dt:.2f} requests/s (information: stdlib HTTP bounds it); "
+          f"/health {health[1]}; /stats {stats[1]}; batch sizes {[len(b) for b in batches]}; "
+          f"stage-2 launches {counts}; non-200 replies {len(failed)}")
+    check(not failed, f"serve-http: failed requests {failed[:3]}")
+    check(codes.count(200) == len(codes), "serve-http: a reply was not 200")
+    check(health[1]["n_passages"] == len(searcher.doclens), f"serve-http: /health {health[1]}")
+    check(stats[1]["queries"] == len(queries), f"serve-http: /stats {stats[1]}")
+    results = {q: (r[1]["pids"], r[1]["scores"]) for q, r in zip(single, replies)}
+    results.update({q: (p, s) for q, p, s in zip(multi, batch_reply[1]["pids"],
+                                                   batch_reply[1]["scores"])})
+    check_stage2_all_mma(searcher.device, counts, "serve-http")
+    n = check_against_direct(searcher, batches, results, "serve-http")
+    print(f"[serve-http] every reply equals direct search_batch of its batch up to ties at "
+          f"{TOL} ({n} batches)")
+    return dict(http_rps=len(single) / dt, http_launches=counts["launches"])
+
+
+def tune_phase(searcher, n_words: int) -> dict:
+    """[tune]: the exact oracle over the whole index for TUNE_QUERIES
+    queries, held against the funnel's stage-2 scores of the pids it
+    returns (TOL), then ``tune_operating_point`` on the default grid at
+    balance caps 1024 and 2048; the config is restored after the sweep and
+    ``apply`` followed by one search runs."""
+    import torch
+
+    from colbert_torch.evaluation.autotune import tune_operating_point
+    from colbert_torch.evaluation.oracle import exhaustive_scores
+
+    queries = unique_queries(13, TUNE_QUERIES, n_words)
+    cfg = searcher.config
+    reset_counts()
+    Q = searcher.encoder.encode_queries(queries)
+    t0 = time.perf_counter()
+    oscores = exhaustive_scores(searcher, Q)
+    dt_oracle = time.perf_counter() - t0
+    pids, scores = searcher.device_index.search_Q_batch(Q, **searcher._search_kwargs(10))
+    valid = pids >= 0
+    err = float(np.abs(scores[valid] - np.take_along_axis(oscores, np.maximum(pids, 0), 1)[valid])
+                .max())
+    print(f"[tune] exhaustive_scores {oscores.shape} in {dt_oracle:.4f}s "
+          f"({oscores.shape[1] / dt_oracle:.0f} passages/s for {len(queries)} queries); the "
+          f"funnel's {int(valid.sum())} returned pids: max |stage-2 - oracle| {err:.3e}")
+    check(oscores.shape == (len(queries), len(searcher.doclens))
+          and bool(np.isfinite(oscores).all()), "tune: oracle scores")
+    check(np.isfinite(err) and err <= TOL, f"tune: stage-2 vs oracle {err} > {TOL}")
+
+    def knobs():
+        return (cfg.plaid_stage2_docs, cfg.plaid_stage1_refine, cfg.nprobe,
+                cfg.refine_width_factor, cfg.ivf_balance_cap, searcher.max_candidates,
+                searcher.cell_cap, tuple(searcher.device_index.ivf_lengths.shape))
+
+    before = knobs()
+    t0 = time.perf_counter()
+    res = tune_operating_point(searcher, queries, k=10, time_reps=2, balance_caps=(1024, 2048))
+    dt_tune = time.perf_counter() - t0
+    print(f"[tune] tune_operating_point: {len(res.table)} points in {dt_tune:.2f}s (random "
+          f"weights on a synthetic index: recall is information only)\n{res}")
+    check(knobs() == before, f"tune: knobs not restored: {knobs()} vs {before}")
+    check(all(t.ms_per_batch and np.isfinite(t.ms_per_batch) for t in res.table),
+          "tune: a point was not timed")
+    saved = before[:4]
+    try:
+        res.apply(searcher)
+        p, s = searcher.search_batch(queries, k=10)
+        check(p.shape == (len(queries), 10) and bool(np.isfinite(s).all()),
+              "tune: search after apply")
+    finally:
+        (cfg.plaid_stage2_docs, cfg.plaid_stage1_refine, cfg.nprobe,
+         cfg.refine_width_factor) = saved
+        if searcher._balance_cap(cfg.ivf_balance_cap) != searcher._balance_cap(before[4]):
+            searcher.set_balance_cap(before[4])
+    counts = stage2_counts()
+    print(f"[tune] chosen {res.chosen.point.label()}, cap {res.chosen.balance_cap}; applied "
+          f"and searched; stage-2 launches {counts}")
+    check_stage2_all_mma(searcher.device, counts, "tune")
+    if searcher.device.type == "cuda":
+        check(not torch.backends.cuda.matmul.allow_tf32, "tune: TF32 must stay off")
+    return dict(oracle_s=dt_oracle, oracle_err=err, tune_s=dt_tune,
+                tune_launches=counts["launches"])
+
+
+def update_phase(enc, passages, index_dir: str) -> dict:
+    """[update]: serve the index built from ``passages`` through a
+    BatchingSearcher, then add
+    UPDATE_ADD passages (new pids, a consistent plan and IVF, 12 flash
+    launches per encoded batch), remove UPDATE_REMOVE pids (never returned
+    through the batcher after a swap), compact (scores of the survivors
+    unchanged under the pid map) and evaluate self-retrieval."""
+    from colbert_torch.evaluation.runner import evaluate
+    from colbert_torch.indexing.updater import IndexUpdater
+    from colbert_torch.ops import flash_attention as fa
+    from colbert_torch.retrieval.searcher import Searcher
+    from colbert_torch.serving import BatchingSearcher
+    from colbert_torch.storage import format as fmt
+    from colbert_torch.utils.testing import synthetic_passages
+
+    dev = enc.device
+    layers = enc.bert_config.num_hidden_layers
+
+    def sync():
+        if dev.type == "cuda":
+            import torch
+
+            torch.cuda.synchronize()
+
+    def query_of(passage: str) -> str:
+        return " ".join(passage.split()[:40])
+
+    n0 = len(passages)
+    check(int(fmt.load_plan(index_dir)["num_documents"]) == n0, "update: not the built index")
+    reset_counts()
+    searcher = Searcher(index_dir, encoder=enc, device=dev)
+    batcher = BatchingSearcher(searcher, max_batch=BATCH, max_wait_ms=5, max_inflight=2)
+    seconds = {}
+    try:
+        added = synthetic_passages(UPDATE_ADD, mean_words=BUILD_MEAN_WORDS, seed=8)
+        up = IndexUpdater(index_dir, enc)
+        t0 = time.perf_counter()
+        with counted_doc_batches(enc) as seen:
+            new_pids = up.add(added)
+        sync()
+        seconds["add"] = time.perf_counter() - t0
+        flash = dict(fa.flash_attention.variant_launches, launches=fa.flash_attention.launches)
+        plan = fmt.load_plan(index_dir)
+        doclens = fmt.load_all_doclens(index_dir)
+        _, ivf_lengths = fmt.load_ivf(index_dir)
+        print(f"[update] add: {len(added)} passages in {seconds['add']:.2f}s -> "
+              f"{len(added) / seconds['add']:.2f} passages/s; pids {new_pids[0]}..{new_pids[-1]}; "
+              f"encoded batches {seen['batches']} (flash-routed {seen['flash_batches']}), flash "
+              f"launches {flash}; plan documents {plan['num_documents']} chunks "
+              f"{plan['num_chunks']} embeddings {plan['num_embeddings']}")
+        check(np.array_equal(new_pids, np.arange(n0, n0 + len(added))), "update: new pids")
+        check(plan["num_documents"] == n0 + len(added)
+              and fmt.check_all_files_saved(index_dir) == [], "update: plan after add")
+        check(int(doclens.sum()) == plan["num_embeddings"] == int(ivf_lengths.sum()),
+              "update: doclens, plan and IVF lengths disagree after add")
+        if dev.type == "cuda":
+            check(seen["flash_batches"] == seen["batches"] > 0, "update: a batch missed flash")
+            check(flash["launches"] == layers * seen["flash_batches"]
+                  and flash["mma"] == flash["launches"] and flash["simt"] == 0,
+                  f"update: flash launches {flash} for {seen['flash_batches']} batches")
+
+        t0 = time.perf_counter()
+        searcher = searcher.reload()
+        seconds["reload_after_add"] = time.perf_counter() - t0
+        batcher.swap(searcher)
+        probe = np.random.default_rng(9).choice(len(added), size=BATCH, replace=False)
+        got = batcher.search_many([query_of(added[i]) for i in probe], k=10)
+        hits = sum(int(p[0]) == n0 + int(i) for (p, _), i in zip(got, probe))
+        print(f"[update] after swap: {hits}/{BATCH} added passages retrieve themselves at "
+              f"top-1 through the batcher (random weights: information only)")
+
+        rng = np.random.default_rng(10)
+        n_new = UPDATE_REMOVE // 10
+        removed = np.concatenate([rng.choice(n0, UPDATE_REMOVE - n_new, replace=False),
+                                  n0 + rng.choice(len(added), n_new, replace=False)])
+        t0 = time.perf_counter()
+        up.remove(removed)
+        seconds["remove"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        searcher = searcher.reload()
+        seconds["reload_after_remove"] = time.perf_counter() - t0
+        batcher.swap(searcher)
+        all_passages = list(passages) + added
+        gone = rng.choice(removed, size=2 * BATCH, replace=False)
+        got = batcher.search_many([query_of(all_passages[p]) for p in gone], k=10)
+        returned = np.concatenate([p for p, _ in got])
+        print(f"[update] remove: {len(removed)} pids ({n_new} of them added) in "
+              f"{seconds['remove']:.2f}s; {len(gone)} queries of removed passages through the "
+              f"batcher returned {int(np.isin(returned, removed).sum())} removed pids")
+        check(not np.isin(returned, removed).any(), "update: a removed pid was returned")
+
+        keep = np.setdiff1d(np.arange(n0 + len(added)), removed)
+        survivors = rng.choice(keep, size=4 * BATCH, replace=False)
+        surv_q = [query_of(all_passages[p]) for p in survivors]
+        p_before, s_before = searcher.search_batch(surv_q, k=10)
+        t0 = time.perf_counter()
+        pid_map = up.compact()
+        seconds["compact"] = time.perf_counter() - t0
+        plan = fmt.load_plan(index_dir)
+        check(up.finish_pending_compact() is False, "update: a compact is still pending")
+        check(plan["num_documents"] == n0 + len(added) - len(removed)
+              and len(fmt.load_deleted(index_dir)) == 0
+              and int((pid_map >= 0).sum()) == plan["num_documents"]
+              and bool((pid_map[removed] == -1).all()), "update: plan after compact")
+        t0 = time.perf_counter()
+        searcher = searcher.reload()
+        seconds["reload_after_compact"] = time.perf_counter() - t0
+        batcher.swap(searcher)
+        p_after, s_after = searcher.search_batch(surv_q, k=10)
+        mapped = np.where(p_before >= 0, pid_map[np.maximum(p_before, 0)], -1)
+        why = agree_up_to_ties(p_after, s_after, mapped, s_before, TOL)
+        diff = float(np.abs(s_after - s_before).max())
+        print(f"[update] compact: {plan['num_documents']} documents, {plan['num_embeddings']} "
+              f"embeddings in {seconds['compact']:.2f}s; {len(surv_q)} survivor queries after "
+              f"vs before under the pid map: max |score diff| {diff:.3e}, equal up to ties: "
+              f"{why is None}")
+        check(why is None, f"update: compaction changed results: {why}")
+
+        qids = [str(p) for p in survivors]
+        qrels = {str(p): {int(pid_map[p])} for p in survivors}
+        report = evaluate(searcher, surv_q, qids, qrels, k=10)
+        print("[update] evaluate (self-retrieval qrels through the pid map; random weights: "
+              "information only) " + json.dumps(report))
+    finally:
+        batcher.close()
+    counts = stage2_counts()
+    print("[update] seconds " + json.dumps({k: round(v, 4) for k, v in seconds.items()})
+          + f"; stage-2 launches {counts}")
+    check_stage2_all_mma(dev, counts, "update")
+    return dict(update_seconds=seconds, update_flash_launches=flash["launches"],
+                update_launches=counts["launches"], update_eval=report,
+                update_add_pps=len(added) / seconds["add"])
+
+
 def kernel_label(mangled: str) -> str:
     """``flash_mma_kernel<bf16,64>`` (``stage2_mma_kernel<2>``) for the
     mangled name of that instantiation of one of the repo's kernels, else
@@ -837,7 +1262,11 @@ def main() -> int:
     from colbert_torch.utils.build import BUILD_DIR
     from colbert_torch.utils.testing import synthetic_passages
 
-    # one nvcc per kernel source, started together
+    # one nvcc per kernel source, started together; always from the sources
+    # (a library left by an earlier run would hide ptxas's report)
+    for so in ("libstage2_maxsim.so", "libflash_attention.so"):
+        if os.path.exists(os.path.join(BUILD_DIR, so)):
+            os.remove(os.path.join(BUILD_DIR, so))
     t0 = time.perf_counter()
     kernels_src = {"stage2_maxsim.cu": fm.build_kernel, "flash_attention.cu": fa.build_kernel}
     with ThreadPoolExecutor(len(kernels_src)) as ex:
@@ -858,10 +1287,15 @@ def main() -> int:
     try:
         mp = main_path(device, n_passages=N_PASSAGES, bert_cfg=BertConfig(),
                        index_dir=index_dir)
+        check(mp["launches"] > 0 and mp["by_variant"] == {"mma": mp["launches"], "simt": 0},
+              f"stage-2 launches on the main path by kernel {mp['by_variant']}, expected all mma")
+        searcher = mp.pop("searcher")
+        live = serve_batcher(searcher, mp["n_words"])
+        live.update(serve_http(searcher, mp["n_words"]))
+        live.update(tune_phase(searcher, mp["n_words"]))
+        del searcher
     finally:
         shutil.rmtree(index_dir, ignore_errors=True)
-    check(mp["launches"] > 0 and mp["by_variant"] == {"mma": mp["launches"], "simt": 0},
-          f"stage-2 launches on the main path by kernel {mp['by_variant']}, expected all mma")
 
     t0 = time.perf_counter()
     passages = synthetic_passages(BUILD_PASSAGES, mean_words=BUILD_MEAN_WORDS)
@@ -878,6 +1312,7 @@ def main() -> int:
     try:
         bp = build_path(enc, passages, build_dir)
         bs = build_search(enc, passages, build_dir)
+        live.update(update_phase(enc, passages, build_dir))
         profile_build_steps(enc, first, build_dir)
     finally:
         shutil.rmtree(build_dir, ignore_errors=True)
@@ -885,7 +1320,12 @@ def main() -> int:
     print(json.dumps({"qps": mp["qps"], "stream_qps": mp["stream_qps"],
                       "stages_ms": mp["stages_ms"],
                       "build_passages_per_s": bp["passages_per_s"],
-                      "build_phases": bp["timings"], "self_top1": bs["self_top1"]}))
+                      "build_phases": bp["timings"], "self_top1": bs["self_top1"],
+                      "batcher_qps": live["batcher_qps"], "http_rps": live["http_rps"],
+                      "oracle_s": live["oracle_s"], "tune_s": live["tune_s"],
+                      "update_add_passages_per_s": live["update_add_pps"],
+                      "update_seconds": live["update_seconds"],
+                      "update_eval": live["update_eval"]}))
     print(card_line())
     kernels = [dict(
         name="stage2_maxsim", route="cuda", variant="mma.sync-3xtf32",
@@ -895,6 +1335,10 @@ def main() -> int:
         ms=mp["kernel_ms"], kernel_ms=mp["kernel_ms"], plain_ms=mp["plain_ms"],
         bound_ms=mp["bound_ms"], bound_by=mp["bound_by"], library_ms=None,
         simt_ms=mp["simt_ms"], fp32_bound_ms=mp["fp32_bound_ms"],
+        launches_by_path={"serve": mp["launches"], "build-search": bs["search_launches"],
+                          "serve-batcher": live["batcher_launches"],
+                          "serve-http": live["http_launches"], "tune": live["tune_launches"],
+                          "update": live["update_launches"]},
     ), dict(
         name="flash_attention", route="cuda", variant="mma.sync",
         source="colbert_torch/csrc/flash_attention.cu",
@@ -902,6 +1346,8 @@ def main() -> int:
         launches=bp["flash_launches"], max_abs_err=fl["max_abs_err"],
         ms=fl["kernel_ms"], kernel_ms=fl["kernel_ms"], plain_ms=fl["plain_ms"],
         bound_ms=fl["bound_ms"], bound_by=fl["bound_by"], library_ms=fl["library_ms"],
+        launches_by_path={"build": bp["flash_launches"],
+                          "update": live["update_flash_launches"]},
     )]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,20 +6,31 @@ writing the same on-disk index format and ``config.json``. It imports
 ``device`` that defaults to ``"cuda"`` and raise when no GPU is present
 unless the caller passes ``device="cpu"``.
 
-Ported so far: the serving path ``Searcher.search_batch`` (query tokenize,
-BERT query encode, the device search funnel) with the stage-2 fused
-decompress+MaxSim CUDA kernel (``csrc/stage2_maxsim.cu``), and the build
-path ``Indexer.index`` (sample encode, k-means and quantile codec training,
-fused doc encode+compress per chunk, IVF) whose doc encode routes attention
-through the flash-attention CUDA kernel (``csrc/flash_attention.cu``). See
-ROADMAP.md for what is still to come.
+Ported so far:
+
+- the serving path ``Searcher.search_batch`` (query tokenize, BERT query
+  encode, the device search funnel) with the stage-2 fused
+  decompress+MaxSim CUDA kernel (``csrc/stage2_maxsim.cu``), and the
+  reference-shaped host backend (``Searcher(backend="host")``,
+  :mod:`~colbert_torch.retrieval.ranking`);
+- the build path ``Indexer.index`` (sample encode, k-means and quantile
+  codec training, fused doc encode+compress per chunk, IVF) whose doc
+  encode routes attention through the flash-attention CUDA kernel
+  (``csrc/flash_attention.cu``);
+- the life of a live index: ``IndexUpdater`` (add, remove, compact),
+  :mod:`~colbert_torch.serving` (``BatchingSearcher`` and its HTTP front),
+  and :mod:`~colbert_torch.evaluation` (metrics, dataset runners, the exact
+  oracle and the operating-point tuner).
+
+Training and the multi-device layer are still to come (ROADMAP.md).
 """
 
 from colbert_torch.config import ColBERTConfig
 
 __version__ = "0.1.0"
 
-__all__ = ["ColBERTConfig", "Indexer", "index", "Searcher", "search", "__version__"]
+__all__ = ["ColBERTConfig", "Indexer", "index", "Searcher", "search", "IndexUpdater",
+           "__version__"]
 
 
 def __getattr__(name):  # lazy: keep `import colbert_torch` light
@@ -31,4 +42,8 @@ def __getattr__(name):  # lazy: keep `import colbert_torch` light
         from colbert_torch.indexing.builder import Indexer, index
 
         return {"Indexer": Indexer, "index": index}[name]
+    if name == "IndexUpdater":
+        from colbert_torch.indexing.updater import IndexUpdater
+
+        return IndexUpdater
     raise AttributeError(f"module 'colbert_torch' has no attribute {name!r}")

@@ -1,10 +1,18 @@
 """Searcher: load an index, answer queries (port of ``colbert_tpu.retrieval.searcher``).
 
-Device backend only: the index is streamed from its chunk files onto the
-device (:class:`~colbert_torch.retrieval.device_index.DeviceIndex`) and a
-query batch runs tokenize (host) -> query BERT encode -> the search funnel
-on the device. The host and sharded backends of the JAX package are not
-ported yet and raise (see ROADMAP.md).
+Two backends:
+
+- ``"device"`` (default): the index is streamed from its chunk files onto
+  the device (:class:`~colbert_torch.retrieval.device_index.DeviceIndex`)
+  and a query batch runs tokenize (host) -> query BERT encode -> the search
+  funnel on the device;
+- ``"host"``: the reference-shaped staged pipeline of
+  :mod:`~colbert_torch.retrieval.ranking`: codes and residuals stay on the
+  host, candidates are gathered there per query, and the probe and the
+  scoring run on ``device``. Useful for debugging and parity.
+
+The JAX package's ``"sharded"`` backend waits for the multi-device layer
+and raises (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ import torch
 
 from colbert_torch.config import ColBERTConfig
 from colbert_torch.models.encoder import ColBERTEncoder
+from colbert_torch.retrieval import ranking
 from colbert_torch.retrieval.device_index import DeviceIndex
 from colbert_torch.storage import format as fmt
 from colbert_torch.utils.build import resolve_device
@@ -50,10 +59,10 @@ class Searcher:
 
     def __post_init__(self) -> None:
         self.device = resolve_device(self.device)
-        if self.backend != "device":
+        if self.backend not in ("device", "host"):
             raise NotImplementedError(
-                f"backend={self.backend!r} is not ported yet; only 'device' is "
-                "(see ROADMAP.md, queue A)"
+                f"backend={self.backend!r} is not ported yet; 'device' and 'host' "
+                "are (see ROADMAP.md, queue A)"
             )
         if self.config is None:
             self.config = ColBERTConfig.load(os.path.join(self.index_path, "config.json"))
@@ -62,8 +71,9 @@ class Searcher:
             raise FileNotFoundError(f"incomplete index at {self.index_path}: {missing}")
         if os.path.exists(os.path.join(self.index_path, "compact_commit.json")):
             raise RuntimeError(
-                "a compact() publish was interrupted mid-commit: finish it "
-                "before opening a Searcher"
+                "a compact() publish was interrupted mid-commit: run "
+                "IndexUpdater(index_path, encoder).finish_pending_compact() "
+                "to complete it before opening a Searcher"
             )
         if self.encoder is None:
             from colbert_torch.models.hf_loader import load_checkpoint
@@ -72,6 +82,8 @@ class Searcher:
             self.encoder = ColBERTEncoder(model, tokenizer, self.config, device=self.device)
 
         codec = fmt.load_codec(self.index_path)
+        self.avg_residual = codec["avg_residual"]
+        self.plan = fmt.load_plan(self.index_path)
         self.ivf, self.ivf_lengths = fmt.load_ivf(self.index_path)
         self.doclens = fmt.load_all_doclens(self.index_path)
         self.deleted_pids = fmt.load_deleted(self.index_path)
@@ -85,18 +97,32 @@ class Searcher:
                 "tombstones): the index looks torn mid-update",
                 int(np.asarray(self.ivf_lengths, np.int64).sum()), expected,
             )
-        self.device_index = DeviceIndex.build(
-            centroids=codec["centroids"],
-            stream_from=self.index_path,
-            ivf=self.ivf,
-            ivf_lengths=self.ivf_lengths,
-            doclens=dl64,
-            bucket_weights=codec["bucket_weights"],
-            nbits=self.config.nbits,
-            balance_cap=self._balance_cap(self.config.ivf_balance_cap),
-            device=self.device,
-        )
-        self._init_capacities()
+        if self.backend == "host":
+            self.centroids = torch.as_tensor(codec["centroids"], dtype=torch.float32).to(self.device)
+            self.bucket_weights = torch.as_tensor(
+                codec["bucket_weights"], dtype=torch.float32).to(self.device)
+            self.codes = fmt.load_all_codes(self.index_path)
+            self.residuals = fmt.load_all_residuals(self.index_path)
+            self.emb2pid = ranking.build_emb2pid(self.doclens)
+            self.emb_offsets = np.concatenate([[0], np.cumsum(dl64[:-1])]).astype(np.int64)
+        else:
+            self.device_index = DeviceIndex.build(
+                centroids=codec["centroids"],
+                stream_from=self.index_path,
+                ivf=self.ivf,
+                ivf_lengths=self.ivf_lengths,
+                doclens=dl64,
+                bucket_weights=codec["bucket_weights"],
+                nbits=self.config.nbits,
+                balance_cap=self._balance_cap(self.config.ivf_balance_cap),
+                device=self.device,
+            )
+            # the codec tables the oracle and the tuner read, shared with the index
+            self.centroids = self.device_index.centroids
+            self.bucket_weights = self.device_index.bucket_weights
+            self.codes = self.residuals = None  # device-resident only
+            self.emb2pid = self.emb_offsets = None
+            self._init_capacities()
 
     @staticmethod
     def _balance_cap(cap: int | None) -> int | None:
@@ -131,7 +157,11 @@ class Searcher:
 
     def set_balance_cap(self, cap: int | None) -> None:
         """Re-balance the probe-side IVF for a new ``ivf_balance_cap``
-        without reloading the index, and re-size the auto capacities."""
+        without reloading the index, and re-size the auto capacities
+        (device backend only)."""
+        if self.backend != "device":
+            raise NotImplementedError(
+                "set_balance_cap: device backend only (rebuild the Searcher for host)")
         self.config.ivf_balance_cap = cap
         self.device_index.rebalance(self.ivf_lengths, self._balance_cap(cap))
         self._init_capacities()
@@ -166,12 +196,16 @@ class Searcher:
 
     def search_batch(self, queries: Sequence[str], k: int = 10) -> Tuple[np.ndarray, np.ndarray]:
         """Batched retrieval -> (pids (B, k) int64, scores (B, k) f32)."""
+        if self.backend == "host":
+            return self._search_batch_impl(queries, k)
         return self.finish_search(self.launch_search(queries, k), k)
 
     def launch_search(self, queries: Sequence[str], k: int = 10) -> list:
         """Tokenize and launch the search of ``queries`` -> a handle for
         :meth:`finish_search`. Batches pad up to a query-batch bucket;
-        wider ones split into bucket-sized launches."""
+        wider ones split into bucket-sized launches. Device backend only."""
+        if self.backend != "device":
+            raise NotImplementedError("launch_search: device backend only")
         kw = self._search_kwargs(k)
         cap = self.QUERY_BATCH_BUCKETS[-1]
         parts = []
@@ -204,7 +238,13 @@ class Searcher:
     def search_stream(self, query_batches, k: int = 10, max_inflight: int = 2):
         """Pipelined batched search: yields one (pids, scores) per input
         batch, in order, with up to ``max_inflight`` batches launched ahead
-        of the one being read back."""
+        of the one being read back. The host backend runs the batches one
+        after another through :meth:`search_batch` (same results, no
+        overlap)."""
+        if self.backend != "device":
+            for qb in query_batches:
+                yield self.search_batch(list(qb), k)
+            return
         pending = deque()
         for qb in query_batches:
             if len(pending) >= max(1, max_inflight):
@@ -215,6 +255,60 @@ class Searcher:
 
     def _phase(self, name: str):
         return device_phase(self.tracer, name)
+
+    # --- host backend ---------------------------------------------------
+
+    @torch.no_grad()
+    def _search_batch_impl(self, queries: Sequence[str], k: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Host-backend search: probe on the device, candidates per query
+        from the host IVF, optional centroid-only pruning, then full scoring
+        on the device. Holds its own ``no_grad``: serving threads do not
+        inherit the caller's grad mode."""
+        B = len(queries)
+        out_pids = np.full((B, k), -1, np.int64)
+        out_scores = np.full((B, k), -np.inf, np.float32)
+        if B == 0:
+            return out_pids, out_scores
+        Q = torch.from_numpy(self.encoder.encode_queries(list(queries))).to(self.device)
+        cells = ranking.probe_centroids(Q, self.centroids,
+                                        nprobe=self.config.nprobe).cpu().numpy()
+        for b in range(B):
+            pids = ranking.candidate_pids(cells[b], self.ivf, self.ivf_lengths, self.emb2pid)
+            if len(pids) == 0:
+                continue
+            pids, scores = self._score_pids(Q[b:b + 1], pids, k)
+            order = np.argsort(-scores, kind="stable")[:k]
+            out_pids[b, :len(order)] = pids[order]
+            out_scores[b, :len(order)] = scores[order]
+        return out_pids, out_scores
+
+    def _gathered(self, arr: np.ndarray, idx: np.ndarray) -> torch.Tensor:
+        """Rows ``arr[idx]`` of a host array -> a tensor on the device
+        (uint32 codes as int32: they index centroids, far below 2^31)."""
+        g = arr[idx]
+        if g.dtype == np.uint32:
+            g = g.view(np.int32)
+        return torch.from_numpy(np.ascontiguousarray(g)).to(self.device)
+
+    def _score_pids(self, Qb: torch.Tensor, pids: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        cfg = self.config
+        ndocs = self._stage_params(k)[0] if cfg.use_plaid_pruning else len(pids)
+        if len(pids) > ndocs:
+            # PLAID stage 1: centroid-only scores keep the stage-2 doc budget
+            idx, mask = ranking.gather_padded(pids, self.doclens, self.emb_offsets)
+            approx = ranking.score_approx(
+                Qb, self._gathered(self.codes, idx),
+                torch.from_numpy(mask).to(self.device), self.centroids,
+            )[0, :len(pids)].cpu().numpy()
+            keep = np.argsort(-approx, kind="stable")[:ndocs]
+            pids = pids[np.sort(keep)]
+        idx, mask = ranking.gather_padded(pids, self.doclens, self.emb_offsets)
+        scores = ranking.score_full(
+            Qb, self._gathered(self.codes, idx), self._gathered(self.residuals, idx),
+            torch.from_numpy(mask).to(self.device), self.centroids, self.bucket_weights,
+            nbits=cfg.nbits,
+        )[0, :len(pids)].cpu().numpy()
+        return pids, scores
 
 
 def search(searcher: Searcher, query: str, k: int = 10):

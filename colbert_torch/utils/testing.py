@@ -173,11 +173,12 @@ def _topic_words(topic: int, n_words: int, n_topics: int = N_TOPICS) -> np.ndarr
 
 
 def synthetic_passages(n: int, mean_words: int = 110, n_words: int = 2000,
-                       n_topics: int = N_TOPICS) -> list[str]:
+                       n_topics: int = N_TOPICS, seed: int = 7) -> list[str]:
     """Topical corpus: each passage draws ~60% of its words from one of
     ``n_topics`` vocabulary subsets and the rest from the whole vocabulary,
-    ``mean_words`` +- 30 words per passage, from a fixed seed."""
-    rng = np.random.default_rng(7)
+    ``mean_words`` +- 30 words per passage, drawn from ``seed`` (bench.py's
+    corpus at the default)."""
+    rng = np.random.default_rng(seed)
     topics = [_topic_words(t, n_words, n_topics) for t in range(n_topics)]
     names = [f"word{i:05d}" for i in range(n_words)]
     out = []

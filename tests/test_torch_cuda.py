@@ -6,8 +6,12 @@ for dim 128 and Lq <= 32, ``simt`` otherwise); the flash-attention kernel vs its
 the output, against the plain version on the fp32 upcast of the same
 inputs), each case through the kernel its dtype and head dim select
 (tensor-core ``mma`` for bf16/fp16 at hd 32/64/128, ``simt`` otherwise);
-and the device and alignment rules of the wrappers. Every test skips without a
-GPU. This file imports no JAX; on a machine without JAX run it as
+the device and alignment rules of the wrappers; and the life of a live index
+on the card against the port on the CPU: ``IndexUpdater.add`` (codes equal up
+to near-ties), the exact oracle (within 1e-4) and a ``BatchingSearcher``
+whose loop thread launches and finishes the searches (the same pids and
+scores as direct ``search_batch`` of the same batches). Every test skips
+without a GPU. This file imports no JAX; on a machine without JAX run it as
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
@@ -209,3 +213,111 @@ def test_flash_mma_rejects_misaligned_inputs(cuda_device):
     with pytest.raises(ValueError, match="aligned"):
         fa.flash_attention(q, k, shifted, bias, num_heads=H)
     assert fa.flash_attention.launches == before
+
+
+# -- the life of a live index on the card --------------------------------------
+
+
+def _live_index(tmp_path, n=300):
+    from colbert_torch.config import ColBERTConfig
+    from colbert_torch.utils.testing import make_encoder, synthesize_index
+
+    path = str(tmp_path / "idx")
+    synthesize_index(path, n, dim=128, nbits=2, avg_doclen=40, chunksize=128, seed=3)
+    cfg = ColBERTConfig(dim=128, nbits=2, doc_maxlen=64, query_maxlen=32, index_bsize=16,
+                        length_bucket=16, activation_dtype="float32")
+    return path, lambda device: make_encoder(dim=128, seed=0, config=cfg, device=device)
+
+
+@pytest.mark.cuda
+def test_updater_add_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    import shutil
+
+    from colbert_torch.indexing.updater import IndexUpdater
+    from colbert_torch.storage import format as fmt
+    from colbert_torch.utils.testing import synthetic_collection
+
+    path, make = _live_index(tmp_path)
+    cpu_path = str(tmp_path / "cpu")
+    shutil.copytree(path, cpu_path)
+    passages = synthetic_collection(150, seed=4, words_per_doc=30)
+    enc_gpu, enc_cpu = make(cuda_device), make("cpu")
+    new_gpu = IndexUpdater(path, enc_gpu).add(passages)
+    new_cpu = IndexUpdater(cpu_path, enc_cpu).add(passages)
+    np.testing.assert_array_equal(new_gpu, np.arange(300, 450))
+    np.testing.assert_array_equal(new_gpu, new_cpu)
+    assert fmt.load_plan(path) == fmt.load_plan(cpu_path)
+    np.testing.assert_array_equal(fmt.load_all_doclens(path), fmt.load_all_doclens(cpu_path))
+    codes_g, codes_c = fmt.load_all_codes(path), fmt.load_all_codes(cpu_path)
+    same = codes_g == codes_c
+    assert same.mean() >= 0.99
+    if not same.all():  # a differing code is a near-tie of the CPU's embeddings
+        flat, _ = enc_cpu.encode_passages(passages)
+        n_old = int(fmt.load_all_doclens(path)[:300].sum())
+        cent = fmt.load_codec(path)["centroids"]
+        rows = np.nonzero(~same)[0]
+        assert (rows >= n_old).all()
+        e = flat[rows - n_old]
+        gap = np.abs((e * (cent[codes_g[rows]] - cent[codes_c[rows]])).sum(axis=1))
+        assert (gap <= 2.0 ** -6).all(), gap
+    np.testing.assert_array_equal(fmt.load_ivf(path)[1].sum(), fmt.load_all_doclens(path).sum())
+
+
+@pytest.mark.cuda
+def test_exhaustive_scores_on_the_card_match_the_cpu(cuda_device, tmp_path):
+    from colbert_torch.evaluation.oracle import exhaustive_scores
+    from colbert_torch.retrieval.searcher import Searcher
+
+    path, make = _live_index(tmp_path)
+    Q = torch.nn.functional.normalize(
+        torch.randn(4, 32, 128, generator=torch.Generator().manual_seed(1)), dim=-1)
+    gpu = Searcher(path, encoder=make(cuda_device), device=cuda_device)
+    cpu = Searcher(path, encoder=make("cpu"), device="cpu")
+    got = exhaustive_scores(gpu, Q, block=100)
+    want = exhaustive_scores(cpu, Q, block=100)
+    assert got.shape == (4, 300)
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
+    # the funnel's stage-2 (the mma kernel) scores its pids as the oracle does
+    mma = fm.stage2_maxsim.variant_launches["mma"]
+    pids, scores = gpu.device_index.search_Q_batch(Q, **gpu._search_kwargs(10))
+    assert fm.stage2_maxsim.variant_launches["mma"] == mma + 1
+    valid = pids >= 0
+    np.testing.assert_allclose(scores[valid], np.take_along_axis(got, np.maximum(pids, 0), 1)[valid],
+                               atol=TOL, rtol=0)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="fp32"):
+            exhaustive_scores(gpu, Q)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.cuda
+def test_batcher_thread_matches_direct_search(cuda_device, tmp_path):
+    from colbert_torch.retrieval.searcher import Searcher
+    from colbert_torch.serving import BatchingSearcher
+    from colbert_torch.utils.testing import synthetic_collection
+
+    path, make = _live_index(tmp_path)
+    s = Searcher(path, encoder=make(cuda_device), device=cuda_device)
+    queries = synthetic_collection(40, seed=8)
+    batches = []
+    launch = s.launch_search
+
+    def recording(qs, k):
+        batches.append(list(qs))
+        return launch(qs, k)
+
+    s.launch_search = recording
+    try:
+        with torch.enable_grad(), BatchingSearcher(s, max_batch=8, max_wait_ms=5) as b:
+            futs = [b.submit(q, k=5) for q in queries]
+            got = {q: f.result(timeout=120) for q, f in zip(queries, futs)}
+    finally:
+        del s.launch_search
+    assert sum(len(bt) for bt in batches) == 40 and max(len(bt) for bt in batches) <= 8
+    for bt in batches:
+        direct_p, direct_s = s.search_batch(bt, k=5)
+        for i, q in enumerate(bt):
+            np.testing.assert_array_equal(got[q][0], direct_p[i])
+            np.testing.assert_array_equal(got[q][1], direct_s[i])

@@ -22,14 +22,17 @@ def _modules():
 def test_package_imports_no_jax():
     names = _modules()
     for name in ("ops.fused_maxsim", "ops.flash_attention", "ops.kmeans",
-                 "indexing.codec_trainer", "indexing.builder", "retrieval.searcher"):
+                 "indexing.codec_trainer", "indexing.builder", "retrieval.searcher",
+                 "indexing.updater", "ops.maxsim", "retrieval.ranking",
+                 "evaluation.metrics", "evaluation.runner", "evaluation.oracle",
+                 "evaluation.autotune", "serving.batcher", "serving.http"):
         assert f"colbert_torch.{name}" in names
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}:\n"
         "    importlib.import_module(n)\n"
         "import colbert_torch\n"
-        "colbert_torch.Searcher, colbert_torch.Indexer\n"
+        "colbert_torch.Searcher, colbert_torch.Indexer, colbert_torch.IndexUpdater\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'colbert_tpu' or m.startswith('colbert_tpu.'))\n"
         "print(bad)\n"

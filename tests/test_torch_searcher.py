@@ -112,7 +112,8 @@ def test_set_balance_cap_and_reload(built, searchers):
 def test_device_and_backend_rules(built):
     _, _, tenc, _, path = built
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Searcher(path, encoder=tenc, device="cpu", backend="host")
+        Searcher(path, encoder=tenc, device="cpu", backend="sharded")
+    assert Searcher(path, encoder=tenc, device="cpu", backend="host").backend == "host"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             Searcher(path, encoder=tenc)  # device defaults to "cuda"
