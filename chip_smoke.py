@@ -83,7 +83,25 @@
    documents, no tombstones; the survivors' results equal the pre-compact
    ones under the pid map, scores to 1e-4) and ``evaluate`` with
    self-retrieval qrels (information); prints the seconds of each step.
-7. Prints the card's name and power limit, a ``kernels`` JSON line (each
+7. ``[train]``: ``ColBERTTrainer`` fine-tunes a bert-base model of its own
+   (random weights from a seed, the corpus vocabulary, dim 128) with
+   ``bench_quality.py``'s recipe: ``make_triples`` over 4,096 passages,
+   32 triples per step (query_maxlen 32, doc_maxlen 192), in-batch
+   negatives, AdamW at lr 3e-5 with 20 warmup steps and the cosine decay
+   to 0 at 300, clipping at 1.0, bf16 activations, remat on. Before it:
+   one step of the model's first 2 layers in fp32 (TF32 off) on the card
+   and on the CPU (loss 1e-5 relative, gradients 1e-4 x their max,
+   parameters 1e-2 x lr), and remat on against off at full depth (loss
+   1e-6 relative, gradients 1e-3 x their max; peak memory of each). Then
+   300 steps: median ms per step after 3 warm-up steps, steps/s,
+   triples/s, tokens/s and model TFLOP/s, the loss at steps 1-3 and every
+   50, no flash launch, the last 20 steps' mean loss below the first 20's,
+   one step profiled. The checkpoint is saved and loaded back bit for bit
+   (tensors and a 32-query encode); an index of the 4,096 passages is
+   built with the trained encoder and searched with 64 prefix queries,
+   whose embeddings must be the trained model's (all stage-2 launches
+   ``mma``); success@1 and @10 are printed for information.
+8. Prints the card's name and power limit, a ``kernels`` JSON line (each
    kernel's launches on the main path and by path), and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -127,6 +145,14 @@ HTTP_REQUESTS = 128         # [serve-http]: concurrent POST /search
 TUNE_QUERIES = 32           # [tune]: the oracle's and the sweep's sample
 UPDATE_ADD = 2_000          # [update]: passages added, then pids removed
 UPDATE_REMOVE = 1_000
+TRAIN_PASSAGES = 4_096      # [train]: bench_quality.py's recipe (:76-108)
+TRAIN_BATCH = 32            # triples per step: 32 queries and 64 docs
+TRAIN_STEPS = 300
+TRAIN_WARMUP = 20
+TRAIN_LR = 3e-5
+TRAIN_QUERIES = 64          # prefix queries of the retrieval check
+CHECK_LAYERS = 2            # depth of the card-vs-CPU step
+CHECK_TRIPLES = 8
 
 
 class SmokeFailure(Exception):
@@ -459,9 +485,10 @@ def main_path(device, *, n_passages: int, bert_cfg, index_dir: str,
 def device_profile(fn) -> dict:
     """One call of ``fn`` under ``torch.profiler``: device time by kernel
     (top 10, ms) and the device's busy share of the call's wall time (both
-    under the profiler's own overhead). Only device-side events (kernels,
-    copies) are summed: a host-side operator's device time is that of the
-    kernels it launched, which are listed themselves."""
+    under the profiler's own overhead), also summed by kind of kernel. Only
+    device-side events (kernels, copies) are summed: a host-side operator's
+    device time is that of the kernels it launched, which are listed
+    themselves."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -474,18 +501,37 @@ def device_profile(fn) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
     for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
+        # a user annotation (``Optimizer.step#AdamW.step``) spans kernels
+        # that are listed themselves
+        if ev.device_type != DeviceType.CUDA or getattr(ev, "is_user_annotation", False):
             continue
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0.0)
         if us > 0:
-            rows.append((us / 1e3, ev.count, ev.key[:70]))
+            rows.append((us / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
+    by_kind: dict = {}
+    for ms, _, name in rows:
+        by_kind[kernel_kind(name)] = by_kind.get(kernel_kind(name), 0.0) + ms
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
                 busy_share=busy_ms / wall_ms if busy_ms else "not measured",
-                top=[dict(ms=ms, calls=n, op=name) for ms, n, name in rows[:10]])
+                by_kind=by_kind,
+                top=[dict(ms=ms, calls=n, op=name[:70]) for ms, n, name in rows[:12]])
+
+
+def kernel_kind(name: str) -> str:
+    """A coarse class of a device kernel, from its name."""
+    low = name.lower()
+    for kind, marks in (("optimizer", ("multi_tensor", "adam")),
+                        ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
+                        ("softmax", ("softmax",)), ("reduce", ("reduce",)),
+                        ("memcpy", ("memcpy", "memset")), ("conversion", ("copy_kernel",)),
+                        ("elementwise", ("elementwise", "vectorized", "unrolled"))):
+        if any(m in low for m in marks):
+            return kind
+    return "other"
 
 
 def profile_batch(searcher, queries) -> dict:
@@ -1205,6 +1251,307 @@ def update_phase(enc, passages, index_dir: str) -> dict:
                 update_add_pps=len(added) / seconds["add"])
 
 
+# ---------------------------------------------------------------------------
+# [train]: fine-tune the encoder, then index and search with it
+# ---------------------------------------------------------------------------
+
+
+def train_config(**kw):
+    """bench_quality.py's training configuration (:76-108): query_maxlen 32,
+    doc_maxlen 192 (the corpus's ~110-140 tokens), and the build knobs of
+    the retrieval check (nbits 2, 4 k-means iterations)."""
+    from colbert_torch.config import ColBERTConfig
+
+    return ColBERTConfig(dim=128, query_maxlen=32, doc_maxlen=192, nbits=2,
+                         kmeans_niters=4, **kw)
+
+
+def train_flops(model, q_shape, d_shape) -> float:
+    """Model FLOPs of one step: 6 x non-embedding parameters x tokens, plus
+    attention's 4*S^2*H per sequence and layer forward, x3 with the
+    backward; remat's recompute is not counted."""
+    cfg = model.bert_config
+    embedding = {"bert.word.weight", "bert.position.weight", "bert.token_type.weight"}
+    params = sum(p.numel() for n, p in model.named_parameters() if n not in embedding)
+    tokens = q_shape[0] * q_shape[1] + d_shape[0] * d_shape[1]
+    seq_sq = q_shape[0] * q_shape[1] ** 2 + d_shape[0] * d_shape[1] ** 2
+    attention = 3 * 4 * cfg.num_hidden_layers * cfg.hidden_size * seq_sq
+    return 6 * params * tokens + attention
+
+
+def step_card_vs_cpu(model, tokenizer, triples, device) -> dict:
+    """Check 1: one ``train_step`` of the first CHECK_LAYERS layers of
+    ``model`` at full width, fp32 activations, TF32 off, constant lr, on the
+    card and on the CPU: loss 1e-5 relative, each gradient within 1e-4 x its
+    max |g|, the parameters after the AdamW step within 1e-2 x lr (entries
+    whose CPU gradient is nonzero but below 1e-6 are counted apart: Adam
+    divides by sqrt(v), so their update follows 1e-7-level differences).
+    The key bias's gradient is 0 in exact arithmetic (softmax ignores a
+    constant added to every key score of a query, and q.(k + b) adds q.b),
+    so its entries are rounding noise and a bound relative to their max
+    means nothing: they are held to |g| <= 1e-9 on both sides instead."""
+    import dataclasses
+
+    import torch
+
+    from colbert_torch.models.colbert import ColBERT
+    from colbert_torch.models.encoder import ColBERTEncoder
+    from colbert_torch.training import ColBERTTrainer
+
+    if device.type == "cuda":
+        check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+              "train: TF32 must be off for the card-vs-CPU step")
+    cfg = dataclasses.replace(model.bert_config, num_hidden_layers=CHECK_LAYERS)
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()
+          if not k.startswith("bert.layers.") or int(k.split(".")[2]) < CHECK_LAYERS}
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        small = ColBERT(cfg, model.dim)
+        small.load_state_dict(sd, strict=True)
+        enc = ColBERTEncoder(small, tokenizer, train_config(activation_dtype="float32"),
+                             device=dev)
+        trainer = ColBERTTrainer(enc, learning_rate=TRAIN_LR)
+        m = trainer.train_step(triples)
+        out[dev.type] = (m, [p.grad.cpu() for p in small.parameters()],
+                         [p.detach().cpu() for p in small.parameters()])
+    (mc, gc, pc), (mh, gh, ph) = out[device.type], out["cpu"]
+    names = [n for n, _ in small.named_parameters()]
+    loss_rel = abs(mc["loss"] - mh["loss"]) / abs(mh["loss"])
+    zero = [n.endswith(".k.bias") for n in names]
+    rel = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+           for a, b, z in zip(gc, gh, zero)]
+    worst = max((r, n) for r, n, z in zip(rel, names, zero) if not z)
+    grad_rel = worst[0]
+    kbias = max(float(g.abs().max()) for gs in (gc, gh) for g, z in zip(gs, zero) if z)
+    masked, total, param_err, masked_err = 0, 0, 0.0, 0.0
+    for a, b, g in zip(pc, ph, gh):
+        tiny = (g.abs() < 1e-6) & (g != 0)
+        diff = (a - b).abs()
+        masked += int(tiny.sum())
+        total += g.numel()
+        param_err = max(param_err, float(diff[~tiny].max()) if (~tiny).any() else 0.0)
+        masked_err = max(masked_err, float(diff[tiny].max()) if tiny.any() else 0.0)
+    print(f"[train] card vs CPU, {CHECK_LAYERS} layers at full width, fp32, {len(triples)} "
+          f"triples, lr {TRAIN_LR}: loss {mc['loss']:.8f} vs {mh['loss']:.8f} (rel "
+          f"{loss_rel:.3e}, limit 1e-5); max grad err / max |g| {grad_rel:.3e} (limit 1e-4; "
+          f"{worst[1]}); key-bias |g| <= {kbias:.3e} (0 in exact arithmetic; limit 1e-9); "
+          f"max param err {param_err:.3e} (limit {1e-2 * TRAIN_LR:.1e}) over "
+          f"{total - masked}/{total} entries; {masked} entries with 0 < |g| < 1e-6: max "
+          f"err {masked_err:.3e}")
+    check(loss_rel <= 1e-5, f"train: card vs CPU loss {loss_rel}")
+    check(grad_rel <= 1e-4, f"train: card vs CPU gradient {worst}")
+    check(kbias <= 1e-9, f"train: key-bias gradient {kbias}")
+    check(param_err <= 1e-2 * TRAIN_LR, f"train: card vs CPU parameters {param_err}")
+    return dict(check_loss_rel=loss_rel, check_grad_rel=grad_rel, check_param_err=param_err,
+                check_masked_err=masked_err)
+
+
+def remat_on_off(model, batch, device) -> dict:
+    """Check 2: loss and gradients of one full-depth bf16 step with remat on
+    and off, from the same state (loss 1e-6 relative, each gradient within
+    1e-3 x its max |g|), and the peak device memory of each forward +
+    backward (parameters and gradients resident, no optimizer state)."""
+    import torch
+
+    from colbert_torch.training.trainer import train_loss
+
+    params = list(model.parameters())
+    res = {}
+    for remat in (True, False):
+        model.zero_grad(set_to_none=True)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        loss, _ = train_loss(model, batch, dtype_name="bfloat16", remat=remat)
+        loss.backward()
+        peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else 0
+        res[remat] = (loss.item(), [p.grad.clone() for p in params], peak)
+    model.zero_grad(set_to_none=True)
+    (l1, g1, m1), (l0, g0, m0) = res[True], res[False]
+    loss_rel = abs(l1 - l0) / abs(l0)
+    grad_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(g1, g0))
+    bit_equal = l1 == l0 and all(torch.equal(a, b) for a, b in zip(g1, g0))
+    print(f"[train] remat on vs off, full depth, bf16: loss {l1:.8f} vs {l0:.8f} (rel "
+          f"{loss_rel:.3e}, limit 1e-6); max grad err / max |g| {grad_rel:.3e} (limit 1e-3); "
+          f"bit-equal {bit_equal}; peak device memory of a forward+backward "
+          f"{m1 / 2**30:.2f} GiB with remat, {m0 / 2**30:.2f} GiB without")
+    check(loss_rel <= 1e-6, f"train: remat changes the loss by {loss_rel}")
+    check(grad_rel <= 1e-3, f"train: remat changes a gradient by {grad_rel}")
+    return dict(remat_bit_equal=bit_equal, peak_gib_remat=m1 / 2**30,
+                peak_gib_no_remat=m0 / 2**30)
+
+
+def train_phase(device, *, bert_cfg, n_passages: int = TRAIN_PASSAGES,
+                steps: int = TRAIN_STEPS, batch: int = TRAIN_BATCH, work_dir: str) -> dict:
+    """[train]: ``ColBERTTrainer`` on a model of its own (random weights
+    from a seed) over ``make_triples`` of the synthetic corpus, in-batch
+    negatives, AdamW at lr TRAIN_LR with TRAIN_WARMUP warmup steps and the
+    cosine decay to 0 at ``steps``, clipping at 1.0, remat on; checks 1-2
+    before, the loss falling, a profiled step, the checkpoint round trip,
+    and an index built and searched with the trained encoder (check 5)."""
+    import statistics
+
+    import torch
+
+    from colbert_torch.indexing.builder import Indexer
+    from colbert_torch.models.colbert import ColBERT, init_colbert
+    from colbert_torch.models.encoder import ColBERTEncoder
+    from colbert_torch.models.hf_loader import load_checkpoint
+    from colbert_torch.ops import flash_attention as fa
+    from colbert_torch.retrieval.searcher import Searcher
+    from colbert_torch.training import ColBERTTrainer
+    from colbert_torch.utils.testing import (bench_vocab_tokenizer, make_triples,
+                                             synthetic_passages)
+
+    cuda = device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    tokenizer = bench_vocab_tokenizer()
+    model = init_colbert(bert_cfg, 128, generator=torch.Generator().manual_seed(17))
+    init_sd = {k: v.clone() for k, v in model.state_dict().items()}
+    passages = synthetic_passages(n_passages)
+    triples = make_triples(passages, steps * batch, seed=0)
+    print(f"[train] model {bert_cfg} params {sum(p.numel() for p in model.parameters())}; "
+          f"{len(triples)} triples over {n_passages} passages")
+    out = step_card_vs_cpu(model, tokenizer, triples[:CHECK_TRIPLES], device)
+
+    cfg = train_config()
+    enc = ColBERTEncoder(model, tokenizer, cfg, device=device)
+    trainer = ColBERTTrainer(enc, learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                             total_steps=steps, in_batch_negatives=True)
+    host = trainer._tensorize(triples[:batch])
+    first = dict(zip(host, enc._put_batch(*host.values())))
+    out.update(remat_on_off(enc.model, first, device))
+    q_shape, d_shape = host["q_ids"].shape, (2 * batch, host["pos_ids"].shape[1])
+    flops = train_flops(enc.model, q_shape, d_shape)
+    tokens = q_shape[0] * q_shape[1] + d_shape[0] * d_shape[1]
+
+    reset_counts()
+    times, step_peak = [], 0
+    for step in range(steps):
+        if cuda and step == 3:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m = trainer.train_step(triples[step * batch:(step + 1) * batch])
+        times.append(time.perf_counter() - t0)  # the metrics' read-back waits for the step
+        if cuda and step == 3:
+            step_peak = torch.cuda.max_memory_allocated()
+        if step < 3 or (step + 1) % 50 == 0:
+            print(f"[train] step {step + 1:4d}: loss {m['loss']:.4f} pairwise_acc "
+                  f"{m['pairwise_acc']:.3f} margin {m['margin']:.4f} "
+                  f"({times[-1] * 1e3:.2f} ms)")
+    flash = fa.flash_attention.launches
+    ms = statistics.median(times[3:]) * 1e3
+    hist = trainer.history
+    head = float(np.mean([h["loss"] for h in hist[:20]]))
+    tail = float(np.mean([h["loss"] for h in hist[-20:]]))
+    tail_acc = float(np.mean([h["pairwise_acc"] for h in hist[-20:]]))
+    print(f"[train] {steps} steps x {batch} triples: median {ms:.3f} ms per step after 3 "
+          f"warm-up steps -> {1e3 / ms:.3f} steps/s, {batch * 1e3 / ms:.2f} triples/s, "
+          f"{tokens * 1e3 / ms:.0f} tokens/s ({tokens} padded positions per step: "
+          f"{q_shape[0]}x{q_shape[1]} query + {d_shape[0]}x{d_shape[1]} doc); model "
+          f"{flops * 1e3 / ms / 1e12:.2f} TFLOP/s ({flops / 1e12:.4f} TFLOP per step = 6 x "
+          f"non-embedding params x tokens + attention 12 x layers x hidden x sum S^2; "
+          f"remat's recompute not counted); peak device memory of step 4 (remat, AdamW "
+          f"state resident) {step_peak / 2**30:.2f} GiB; flash launches {flash}")
+    print(f"[train] mean loss of the first 20 steps {head:.4f}, of the last 20 {tail:.4f}; "
+          f"tail-20 pairwise_acc {tail_acc:.3f}")
+    check(flash == 0, f"train: {flash} flash launches; training never routes to flash")
+    check(tail < head, f"train: the loss did not fall ({head} -> {tail})")
+    if cuda:
+        prof = device_profile(lambda: trainer.train_step(triples[:batch]))
+        print("[profile] train step " + json.dumps(prof))
+    out.update(train_ms=ms, train_steps_per_s=1e3 / ms, train_triples_per_s=batch * 1e3 / ms,
+               train_tokens_per_s=tokens * 1e3 / ms, train_tflops=flops * 1e3 / ms / 1e12,
+               train_step_peak_gib=step_peak / 2**30, train_loss_head=head,
+               train_loss_tail=tail, train_tail_acc=tail_acc)
+
+    # check 4: the checkpoint round trip
+    ckpt = os.path.join(work_dir, "smoke_train_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+    trainer.save_checkpoint(ckpt)
+    _, model2, tok2 = load_checkpoint(ckpt, device=device)
+    sd2 = model2.state_dict()
+    differ = [k for k, v in enc.model.state_dict().items() if not torch.equal(v, sd2[k])]
+    enc2 = ColBERTEncoder(model2, tok2, cfg, device=device)
+    queries = [q for q, _, _ in triples[:batch]]
+    same_q = bool(np.array_equal(enc.encode_queries(queries), enc2.encode_queries(queries)))
+    print(f"[train] checkpoint saved and loaded in {time.perf_counter() - t0:.2f}s: "
+          f"{len(sd2) - len(differ)}/{len(sd2)} tensors bit-equal; {len(queries)}-query "
+          f"encode bit-equal {same_q}")
+    check(not differ and tok2.vocab == tokenizer.vocab, f"train: checkpoint differs {differ[:3]}")
+    check(same_q, "train: the loaded checkpoint encodes queries differently")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    del model2, enc2
+
+    # check 5: the trained weights reach retrieval
+    index_dir = os.path.join(work_dir, "smoke_train_index")
+    shutil.rmtree(index_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    Indexer(cfg, encoder=enc, collection=passages, device=device).index(index_dir)
+    sync()
+    build_s = time.perf_counter() - t0
+    searcher = Searcher(index_dir, encoder=enc, device=device)
+    pids = np.random.default_rng(14).choice(n_passages, TRAIN_QUERIES, replace=False)
+    queries = [passages[p][:200] for p in pids]
+    seen = []
+    encode = enc.encode_query_tokens
+
+    def recording(ids, mask):
+        Q = encode(ids, mask)
+        seen.append((ids, mask, Q))
+        return Q
+
+    reset_counts()
+    enc.encode_query_tokens = recording
+    try:
+        results = [searcher.search_batch(queries[i:i + BATCH], k=10)
+                   for i in range(0, len(queries), BATCH)]
+    finally:
+        del enc.encode_query_tokens
+    counts = stage2_counts()
+    initial = ColBERT(bert_cfg, 128)
+    initial.load_state_dict(init_sd)
+    initial = initial.to(device)
+    same, moved = True, True
+    with torch.no_grad():
+        for ids, mask, Q in seen:
+            ids_t, mask_t = enc._put_batch(ids, mask)
+            keep = torch.ones_like(mask_t)
+            want = enc.model.forward_normalized(ids_t, mask_t, keep,
+                                                dtype_name=cfg.activation_dtype)
+            before = initial.forward_normalized(ids_t, mask_t, keep,
+                                                dtype_name=cfg.activation_dtype)
+            same &= bool(torch.equal(Q, want))
+            moved &= not bool(torch.equal(Q, before))
+    p = np.concatenate([r[0] for r in results])
+    s1 = float((p[:, 0] == pids).mean())
+    s10 = float((p == pids[:, None]).any(axis=1).mean())
+    print(f"[train] index of {n_passages} passages built in {build_s:.2f}s with the trained "
+          f"encoder; {len(queries)} prefix queries: the searcher's query embeddings equal "
+          f"the trained model's forward {same}, differ from the initial model's {moved}; "
+          f"stage-2 launches {counts}; self-retrieval success@1 {s1:.3f} success@10 "
+          f"{s10:.3f} (information)")
+    check(same and seen, "train: the searcher's query embeddings are not the trained model's")
+    check(moved, "train: the searcher's query embeddings equal the untrained model's")
+    check(p.shape == (TRAIN_QUERIES, 10) and all(np.isfinite(r[1]).all() for r in results),
+          "train: result shape or scores")
+    check_stage2_all_mma(device, counts, "train")
+    shutil.rmtree(index_dir, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"[train] phase seconds {seconds:.1f}")
+    out.update(train_search_launches=counts["launches"], train_flash_launches=flash,
+               train_success_at_1=s1, train_success_at_10=s10, train_index_s=build_s,
+               train_phase_s=seconds)
+    return out
+
+
 def kernel_label(mangled: str) -> str:
     """``flash_mma_kernel<bf16,64>`` (``stage2_mma_kernel<2>``) for the
     mangled name of that instantiation of one of the repo's kernels, else
@@ -1260,7 +1607,7 @@ def main() -> int:
     from colbert_torch.ops import flash_attention as fa
     from colbert_torch.ops import fused_maxsim as fm
     from colbert_torch.utils.build import BUILD_DIR
-    from colbert_torch.utils.testing import synthetic_passages
+    from colbert_torch.utils.testing import bench_vocab_tokenizer, synthetic_passages
 
     # one nvcc per kernel source, started together; always from the sources
     # (a library left by an earlier run would hide ptxas's report)
@@ -1317,6 +1664,10 @@ def main() -> int:
     finally:
         shutil.rmtree(build_dir, ignore_errors=True)
 
+    del enc
+    tr = train_phase(device, bert_cfg=BertConfig(vocab_size=len(bench_vocab_tokenizer().vocab)),
+                     work_dir=BUILD_DIR)
+
     print(json.dumps({"qps": mp["qps"], "stream_qps": mp["stream_qps"],
                       "stages_ms": mp["stages_ms"],
                       "build_passages_per_s": bp["passages_per_s"],
@@ -1325,7 +1676,9 @@ def main() -> int:
                       "oracle_s": live["oracle_s"], "tune_s": live["tune_s"],
                       "update_add_passages_per_s": live["update_add_pps"],
                       "update_seconds": live["update_seconds"],
-                      "update_eval": live["update_eval"]}))
+                      "update_eval": live["update_eval"],
+                      "train": {k: v for k, v in tr.items()
+                                if k not in ("train_search_launches", "train_flash_launches")}}))
     print(card_line())
     kernels = [dict(
         name="stage2_maxsim", route="cuda", variant="mma.sync-3xtf32",
@@ -1338,7 +1691,7 @@ def main() -> int:
         launches_by_path={"serve": mp["launches"], "build-search": bs["search_launches"],
                           "serve-batcher": live["batcher_launches"],
                           "serve-http": live["http_launches"], "tune": live["tune_launches"],
-                          "update": live["update_launches"]},
+                          "update": live["update_launches"], "train": tr["train_search_launches"]},
     ), dict(
         name="flash_attention", route="cuda", variant="mma.sync",
         source="colbert_torch/csrc/flash_attention.cu",
@@ -1347,7 +1700,8 @@ def main() -> int:
         ms=fl["kernel_ms"], kernel_ms=fl["kernel_ms"], plain_ms=fl["plain_ms"],
         bound_ms=fl["bound_ms"], bound_by=fl["bound_by"], library_ms=fl["library_ms"],
         launches_by_path={"build": bp["flash_launches"],
-                          "update": live["update_flash_launches"]},
+                          "update": live["update_flash_launches"],
+                          "train": tr["train_flash_launches"]},
     )]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -20,9 +20,12 @@ Ported so far:
 - the life of a live index: ``IndexUpdater`` (add, remove, compact),
   :mod:`~colbert_torch.serving` (``BatchingSearcher`` and its HTTP front),
   and :mod:`~colbert_torch.evaluation` (metrics, dataset runners, the exact
-  oracle and the operating-point tuner).
+  oracle and the operating-point tuner);
+- fine-tuning the encoder: :class:`~colbert_torch.training.ColBERTTrainer`
+  (three objectives, AdamW with the JAX trainer's schedules and clipping,
+  per-layer recompute) and HF checkpoint export that both packages load.
 
-Training and the multi-device layer are still to come (ROADMAP.md).
+The multi-device layer is still to come (ROADMAP.md).
 """
 
 from colbert_torch.config import ColBERTConfig
@@ -30,7 +33,7 @@ from colbert_torch.config import ColBERTConfig
 __version__ = "0.1.0"
 
 __all__ = ["ColBERTConfig", "Indexer", "index", "Searcher", "search", "IndexUpdater",
-           "__version__"]
+           "ColBERTTrainer", "__version__"]
 
 
 def __getattr__(name):  # lazy: keep `import colbert_torch` light
@@ -46,4 +49,8 @@ def __getattr__(name):  # lazy: keep `import colbert_torch` light
         from colbert_torch.indexing.updater import IndexUpdater
 
         return IndexUpdater
+    if name == "ColBERTTrainer":
+        from colbert_torch.training.trainer import ColBERTTrainer
+
+        return ColBERTTrainer
     raise AttributeError(f"module 'colbert_torch' has no attribute {name!r}")

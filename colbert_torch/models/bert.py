@@ -11,7 +11,10 @@ package's ``preferred_element_type=float32`` products are). With
 :func:`colbert_torch.ops.flash_attention.flash_attention_bsh` (the CUDA
 kernel on the card, its plain version on the CPU) with the bias
 ``mask_bias[:, 0, 0, :]``, as ``bert_encode(use_flash=True)`` routes it
-through the Pallas kernel.
+through the Pallas kernel. With ``remat`` each layer runs under
+``torch.utils.checkpoint`` (``bert_encode(remat=True)``'s ``jax.checkpoint``):
+the backward recomputes a layer's activations instead of keeping every
+layer's attention temporaries; the values do not change.
 
 Parameter names follow the JAX pytree (``q``, ``k``, ``v``, ``attn_out``,
 ``attn_ln``, ``mlp_in``, ``mlp_out``, ``mlp_ln`` per layer); ``nn.Linear``
@@ -27,6 +30,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from colbert_torch.ops.flash_attention import flash_attention_bsh
 
@@ -137,7 +141,7 @@ class BertModel(nn.Module):
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                 dtype: torch.dtype = torch.bfloat16, use_flash: bool = False,
-                ) -> torch.Tensor:
+                remat: bool = False) -> torch.Tensor:
         B, S = input_ids.shape
         pos = torch.arange(S, device=input_ids.device)
         x = (self.word(input_ids) + self.position(pos)[None]
@@ -147,5 +151,10 @@ class BertModel(nn.Module):
         mask_bias = torch.where(attention_mask.bool(), 0.0, neg)
         mask_bias = mask_bias.to(torch.float32)[:, None, None, :]  # (B,1,1,S)
         for layer in self.layers:
-            x = layer(x, mask_bias, use_flash)
+            if remat:
+                # no dropout anywhere, so no RNG state to replay
+                x = checkpoint(layer, x, mask_bias, use_flash, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = layer(x, mask_bias, use_flash)
         return x

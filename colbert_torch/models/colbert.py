@@ -10,6 +10,9 @@ flash-attention kernel. The doc-side batches of the build path fuse the
 forward with keep-row compaction (``encode_compact_batch``) and with the
 residual codec (``encode_compress_batch``, ``encode_compress_compact_batch``),
 so only kept rows, or only codes and packed residuals, leave the device.
+``remat`` (training) recomputes each BERT layer in the backward.
+``from_jax_params`` and ``to_jax_params`` carry weights between the port and
+the JAX package's pytree.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from torch import nn
 from colbert_torch.models.bert import BertConfig, BertModel
 from colbert_torch.ops import codec as codec_ops
 
-__all__ = ["ColBERT", "DTYPES", "from_jax_params", "init_colbert",
+__all__ = ["ColBERT", "DTYPES", "from_jax_params", "to_jax_params", "init_colbert",
            "skiplist_keep_mask", "compact_doc_embeddings"]
 
 DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
@@ -44,10 +47,12 @@ class ColBERT(nn.Module):
     def forward_normalized(
         self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
         keep_mask: torch.Tensor, *, dtype_name: str = "bfloat16",
-        use_flash: bool = False,
+        use_flash: bool = False, remat: bool = False,
     ) -> torch.Tensor:
-        """-> unit-norm fp32 embeddings ``(B, L, dim)``; dropped rows are 0."""
-        hidden = self.bert(input_ids, attention_mask, DTYPES[dtype_name], use_flash)
+        """-> unit-norm fp32 embeddings ``(B, L, dim)``; dropped rows are 0.
+        The norm is clamped inside the sqrt, so a dropped row's gradient is
+        0, not NaN."""
+        hidden = self.bert(input_ids, attention_mask, DTYPES[dtype_name], use_flash, remat)
         w = self.linear.weight.to(hidden.dtype)
         emb = torch.matmul(hidden.float(), w.float().t())
         if self.linear.bias is not None:
@@ -59,10 +64,11 @@ class ColBERT(nn.Module):
     def encode_batch(
         self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
         keep_mask: torch.Tensor, *, dtype_name: str = "bfloat16",
-        out_dtype_name: str = "float32", use_flash: bool = False,
+        out_dtype_name: str = "float32", use_flash: bool = False, remat: bool = False,
     ) -> torch.Tensor:
         emb = self.forward_normalized(input_ids, attention_mask, keep_mask,
-                                      dtype_name=dtype_name, use_flash=use_flash)
+                                      dtype_name=dtype_name, use_flash=use_flash,
+                                      remat=remat)
         return _to_out_dtype(emb, out_dtype_name)
 
     def encode_compact_batch(
@@ -197,3 +203,30 @@ def from_jax_params(params: Mapping[str, Any], cfg: BertConfig) -> ColBERT:
             sd[f"bert.layers.{i}.{name}.bias"] = t(np.asarray(layers[name]["bias"])[i])
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def to_jax_params(model: ColBERT) -> dict:
+    """Inverse of :func:`from_jax_params`: a port model -> the JAX ColBERT
+    pytree as numpy fp32 arrays (``{"bert": {"embeddings", "layers"},
+    "linear"}``, per-layer weights stacked on a leading layer axis, dense
+    kernels ``(in, out)``)."""
+    def a(x: torch.Tensor) -> np.ndarray:
+        return x.detach().to("cpu", torch.float32).numpy().copy()
+
+    bert = model.bert
+    layers = {}
+    for name in _LAYER_DENSE:
+        mods = [getattr(layer, name) for layer in bert.layers]
+        layers[name] = {"kernel": np.stack([a(m.weight).T for m in mods]),
+                        "bias": np.stack([a(m.bias) for m in mods])}
+    for name in _LAYER_LN:
+        mods = [getattr(layer, name) for layer in bert.layers]
+        layers[name] = {"scale": np.stack([a(m.scale) for m in mods]),
+                        "bias": np.stack([a(m.bias) for m in mods])}
+    linear = {"kernel": np.ascontiguousarray(a(model.linear.weight).T)}
+    if model.linear.bias is not None:
+        linear["bias"] = a(model.linear.bias)
+    embeddings = {"word": a(bert.word.weight), "position": a(bert.position.weight),
+                  "token_type": a(bert.token_type.weight),
+                  "ln": {"scale": a(bert.emb_ln.scale), "bias": a(bert.emb_ln.bias)}}
+    return {"bert": {"embeddings": embeddings, "layers": layers}, "linear": linear}

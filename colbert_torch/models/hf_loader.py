@@ -1,14 +1,19 @@
-"""HuggingFace ColBERT checkpoint loading (port of ``colbert_tpu.models.hf_loader``).
+"""HuggingFace ColBERT checkpoints (port of ``colbert_tpu.models.hf_loader``).
 
 A checkpoint directory holds ``config.json``, ``vocab.txt`` and the weights
 as ``model.safetensors`` or ``pytorch_model.bin``, with HF ``BertModel``
-names plus the ColBERT ``linear`` head. Safetensors files are read by a
-small reader of the format (an 8-byte little-endian header length, a JSON
-header, then the raw tensor bytes), so no ``safetensors`` package is needed.
+names plus the ColBERT ``linear`` head. ``load_checkpoint`` reads one;
+``save_checkpoint`` writes one (fp32 safetensors, ``bert.``-prefixed BERT
+names, ``linear.weight`` unprefixed: the JAX exporter's layout, so either
+package loads what the other wrote). Safetensors files are read and written
+by a small implementation of the format (an 8-byte little-endian header
+length, a JSON header padded with spaces to a multiple of 8, then the raw
+tensor bytes), so no ``safetensors`` package is needed.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import struct
@@ -21,7 +26,8 @@ from colbert_torch.models.colbert import ColBERT
 from colbert_torch.tokenization.wordpiece import WordPieceTokenizer
 from colbert_torch.utils.build import resolve_device
 
-__all__ = ["load_checkpoint", "load_state_dict", "read_safetensors"]
+__all__ = ["load_checkpoint", "load_state_dict", "read_safetensors", "save_checkpoint",
+           "state_dict_from_model", "write_safetensors"]
 
 _ST_DTYPES = {
     "F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
@@ -46,6 +52,27 @@ def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
         t = torch.frombuffer(buf, dtype=dtype) if hi > lo else torch.empty(0, dtype=dtype)
         out[name] = t.reshape(info["shape"])
     return out
+
+
+def write_safetensors(path: str, tensors: Dict[str, torch.Tensor]) -> None:
+    """Write ``tensors`` as a ``.safetensors`` file (names sorted, data
+    back to back in that order, little-endian as the host's memory is)."""
+    names = {dt: name for name, dt in _ST_DTYPES.items()}
+    header, blobs, offset = {}, [], 0
+    for name in sorted(tensors):
+        t = tensors[name].detach().to("cpu").contiguous()
+        blob = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(blob)]}
+        blobs.append(blob)
+        offset += len(blob)
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for blob in blobs:
+            f.write(blob)
 
 
 def load_state_dict(directory: str) -> Dict[str, torch.Tensor]:
@@ -101,6 +128,54 @@ def _model_state_dict(raw: Dict[str, torch.Tensor], cfg: BertConfig,
             sd[f"bert.layers.{i}.{ours}.scale"] = f32(f"{p}.{hf}.weight")
             sd[f"bert.layers.{i}.{ours}.bias"] = f32(f"{p}.{hf}.bias")
     return sd
+
+
+def state_dict_from_model(model: ColBERT, *, prefix: str = "bert.") -> Dict[str, torch.Tensor]:
+    """Inverse of :func:`_model_state_dict`: a port model -> HF-named fp32
+    CPU tensors (``prefix`` before every BERT name, ``linear.*``
+    unprefixed), as ``state_dict_from_params`` names the JAX pytree."""
+    def f32(t):
+        return t.detach().to("cpu", torch.float32)
+
+    bert = model.bert
+    sd = {
+        f"{prefix}embeddings.word_embeddings.weight": f32(bert.word.weight),
+        f"{prefix}embeddings.position_embeddings.weight": f32(bert.position.weight),
+        f"{prefix}embeddings.token_type_embeddings.weight": f32(bert.token_type.weight),
+        f"{prefix}embeddings.LayerNorm.weight": f32(bert.emb_ln.scale),
+        f"{prefix}embeddings.LayerNorm.bias": f32(bert.emb_ln.bias),
+    }
+    for i, layer in enumerate(bert.layers):
+        p = f"{prefix}encoder.layer.{i}"
+        for ours, hf in _HF_DENSE.items():
+            sd[f"{p}.{hf}.weight"] = f32(getattr(layer, ours).weight)
+            sd[f"{p}.{hf}.bias"] = f32(getattr(layer, ours).bias)
+        for ours, hf in _HF_LN.items():
+            sd[f"{p}.{hf}.weight"] = f32(getattr(layer, ours).scale)
+            sd[f"{p}.{hf}.bias"] = f32(getattr(layer, ours).bias)
+    sd["linear.weight"] = f32(model.linear.weight)
+    if model.linear.bias is not None:
+        sd["linear.bias"] = f32(model.linear.bias)
+    return sd
+
+
+def save_checkpoint(directory: str, model: ColBERT, tokenizer: WordPieceTokenizer) -> None:
+    """Write an HF-compatible ColBERT checkpoint directory
+    (``model.safetensors``, ``config.json``, ``vocab.txt``) that
+    :func:`load_checkpoint`, and the JAX package's loader, read back. A
+    tokenizer whose vocab ids are not ``0..n-1`` cannot be written as
+    ``vocab.txt`` and is refused before anything is written."""
+    ids = sorted(tokenizer.vocab.values())
+    if ids != list(range(len(ids))):
+        raise ValueError("tokenizer vocab ids must be contiguous to export vocab.txt")
+    os.makedirs(directory, exist_ok=True)
+    write_safetensors(os.path.join(directory, "model.safetensors"),
+                      state_dict_from_model(model))
+    with open(os.path.join(directory, "config.json"), "w") as f:
+        json.dump(dataclasses.asdict(model.bert_config), f, indent=2)
+    by_id = sorted(tokenizer.vocab.items(), key=lambda kv: kv[1])
+    with open(os.path.join(directory, "vocab.txt"), "w") as f:
+        f.write("\n".join(tok for tok, _ in by_id) + "\n")
 
 
 def load_checkpoint(

@@ -6,7 +6,8 @@ loadable index with random but mutually consistent codec, chunks, IVF and
 plan, without any encoder (its random draws are numpy's, so the same seed
 writes the same index as the JAX package's function), and the long-document
 corpus of the build smoke run (``bench_vocab_tokenizer``,
-``synthetic_passages``: copies of ``bench.py``'s helpers).
+``synthetic_passages``: copies of ``bench.py``'s helpers), and the training
+triples over it (``make_triples``: a copy of ``bench_quality.py``'s).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from colbert_torch.models.encoder import ColBERTEncoder
 from colbert_torch.tokenization.wordpiece import WordPieceTokenizer
 
 __all__ = ["make_vocab", "make_encoder", "synthetic_collection", "synthesize_index",
-           "bench_vocab_tokenizer", "synthetic_passages"]
+           "bench_vocab_tokenizer", "synthetic_passages", "make_triples"]
 
 _SPECIALS = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "[unused0]", "[unused1]"]
 _BASE_WORDS = [
@@ -192,4 +193,31 @@ def synthetic_passages(n: int, mean_words: int = 110, n_words: int = 2000,
         ])
         rng.shuffle(ids)
         out.append(" ".join([names[j] for j in ids.tolist()]))
+    return out
+
+
+def make_triples(
+    passages: list[str], n: int, *, n_topics: int = N_TOPICS, seed: int = 0,
+    prefix_chars: int = 200,
+) -> list[tuple[str, str, str]]:
+    """(query, positive, negative) over :func:`synthetic_passages`: the
+    query is the positive's prefix, the negative a different passage of
+    the same topic (passage i belongs to topic i % n_topics). Same-topic
+    negatives share ~60% of the positive's vocabulary, so the encoder must
+    learn per-passage margins, not topic membership."""
+    rng = np.random.default_rng(seed)
+    P = len(passages)
+    if P < 2 * n_topics:
+        # below this a topic may have no second member, and the same-topic
+        # draw below could never find j != i
+        raise ValueError(
+            f"need >= {2 * n_topics} passages ({n_topics} topics x 2) to "
+            f"sample same-topic negatives; got {P}")
+    out = []
+    for _ in range(n):
+        i = int(rng.integers(0, P))
+        j = int(rng.integers(0, P // n_topics)) * n_topics + i % n_topics
+        while j == i or j >= P:
+            j = int(rng.integers(0, P // n_topics)) * n_topics + i % n_topics
+        out.append((passages[i][:prefix_chars], passages[i], passages[j]))
     return out

@@ -25,7 +25,8 @@ def test_package_imports_no_jax():
                  "indexing.codec_trainer", "indexing.builder", "retrieval.searcher",
                  "indexing.updater", "ops.maxsim", "retrieval.ranking",
                  "evaluation.metrics", "evaluation.runner", "evaluation.oracle",
-                 "evaluation.autotune", "serving.batcher", "serving.http"):
+                 "evaluation.autotune", "serving.batcher", "serving.http",
+                 "training.trainer"):
         assert f"colbert_torch.{name}" in names
     code = (
         "import importlib, sys\n"
@@ -33,6 +34,7 @@ def test_package_imports_no_jax():
         "    importlib.import_module(n)\n"
         "import colbert_torch\n"
         "colbert_torch.Searcher, colbert_torch.Indexer, colbert_torch.IndexUpdater\n"
+        "colbert_torch.ColBERTTrainer\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'colbert_tpu' or m.startswith('colbert_tpu.'))\n"
         "print(bad)\n"
