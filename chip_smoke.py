@@ -101,7 +101,32 @@
    built with the trained encoder and searched with 64 prefix queries,
    whose embeddings must be the trained model's (all stage-2 launches
    ``mma``); success@1 and @10 are printed for information.
-8. Prints the card's name and power limit, a ``kernels`` JSON line (each
+8. ``[examples]``: the entry points of ``colbert_torch.examples`` at their
+   default device in a work directory: ``make_eval_fixture`` (8,192
+   passages, 64 queries), a checkpoint of the seeded bert-base bench
+   encoder (``write_bench_checkpoint``), ``indexing`` from it, ``searching``
+   with and without ``--random-weights`` (the same weights; each equal to a
+   direct ``Searcher.search`` up to ties and 1e-4), ``evaluate`` (metrics for
+   information, QPS > 0), ``tune --apply-to config`` (the chosen knobs in
+   config.json), ``update`` add 64 / remove 32 / compact (plan, doclens,
+   tombstones and IVF consistent after each), ``python -m
+   colbert_torch.examples.serve`` as a subprocess (healthy within 120 s, 16
+   POST /search one at a time, each equal to a direct ``search_batch`` of
+   that query alone; stopped after) and ``train`` on 512 triples (the
+   checkpoint loads back, differs from its input, and a ``Searcher`` with
+   it answers). Then the forward-step hook ``colbert_torch.graft_entry``
+   at its defaults (bert-base doc encode, B=8 L=128, bf16): each kept
+   token's embedding within cosine 0.999 of the same model's fp32 encode.
+   Prints the seconds of each step; each step's launches are counted with
+   the counts set to 0 just before it.
+9. ``[quality]``: ``colbert_torch.evaluation.quality.main`` in process at
+   16,384 passages and 100 training steps (bert-base, its JSON line
+   printed): every recall in [0, 1], every QPS above 0, and for its 32
+   queries the quality-first point (picked out by its arguments) has
+   stage-2 scores, for the pids it returns, within 1e-4 of the exact
+   oracle's. Every in-process stage-2 launch of
+   both phases is checked to be ``mma``.
+10. Prints the card's name and power limit, a ``kernels`` JSON line (each
    kernel's launches on the main path and by path), and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -153,6 +178,15 @@ TRAIN_LR = 3e-5
 TRAIN_QUERIES = 64          # prefix queries of the retrieval check
 CHECK_LAYERS = 2            # depth of the card-vs-CPU step
 CHECK_TRIPLES = 8
+EXAMPLES_PASSAGES = 8_192   # [examples]: the eval fixture's collection and queries
+EXAMPLES_QUERIES = 64
+EXAMPLES_ADD = 64           # update add, then remove, then compact
+EXAMPLES_REMOVE = 32
+EXAMPLES_HTTP = 16          # POST /search to the served example, one at a time
+EXAMPLES_TRIPLES = 512      # train: one epoch at the default batch of 32
+SERVE_START_S = 120
+QUALITY_PASSAGES = 16_384   # [quality]: the drill's corpus and training steps
+QUALITY_STEPS = 100
 
 
 class SmokeFailure(Exception):
@@ -1552,6 +1586,324 @@ def train_phase(device, *, bert_cfg, n_passages: int = TRAIN_PASSAGES,
     return out
 
 
+# ---------------------------------------------------------------------------
+# [examples] and [quality]: the entry points a user runs
+# ---------------------------------------------------------------------------
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def check_index_consistent(index_dir: str, n_docs: int, step: str) -> dict:
+    """Plan, doclens, tombstones and IVF of an index agree -> its plan."""
+    from colbert_torch.storage import format as fmt
+
+    plan = fmt.load_plan(index_dir)
+    doclens = fmt.load_all_doclens(index_dir)
+    deleted = fmt.load_deleted(index_dir)
+    _, ivf_lengths = fmt.load_ivf(index_dir)
+    live = int(doclens.sum()) - int(doclens[deleted].sum())
+    check(fmt.check_all_files_saved(index_dir) == [] and plan["num_documents"] == n_docs
+          and len(doclens) == n_docs and int(doclens.sum()) == plan["num_embeddings"]
+          and int(ivf_lengths.sum()) == live
+          and not os.path.exists(os.path.join(index_dir, "compact_commit.json")),
+          f"examples: {step}: plan, doclens, tombstones and IVF disagree")
+    return plan
+
+
+def examples_phase(device, work_dir: str, *, n_passages: int = EXAMPLES_PASSAGES,
+                   bert_cfg=None) -> dict:
+    """[examples]: the entry points of ``colbert_torch.examples`` in a work
+    directory, each at its default device on the card: ``make_eval_fixture``,
+    a checkpoint of the seeded bench encoder (``bert_cfg``, default
+    bert-base), ``indexing`` from it, ``searching`` (and with
+    ``--random-weights``, the same weights) against a direct search,
+    ``evaluate``, ``tune --apply-to config``, ``update`` add / remove /
+    compact, ``serve`` as a subprocess answering POST /search one request
+    at a time against direct search, and ``train`` whose checkpoint loads
+    back, differs from its input and searches the index."""
+    import torch
+
+    from colbert_torch.config import ColBERTConfig
+    from colbert_torch.evaluation.runner import load_queries_tsv
+    from colbert_torch.examples import (evaluate, indexing, make_eval_fixture, searching,
+                                        train, tune, update)
+    from colbert_torch.models.encoder import ColBERTEncoder
+    from colbert_torch.models.hf_loader import load_checkpoint
+    from colbert_torch.ops import flash_attention as fa
+    from colbert_torch.retrieval.searcher import Searcher
+    from colbert_torch.storage import format as fmt
+    from colbert_torch.utils.testing import (make_triples, synthetic_passages,
+                                             write_bench_checkpoint)
+
+    root = os.path.join(work_dir, "smoke_examples")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    dev_args = [] if device.type == "cuda" else ["--device", "cpu"]
+    seconds = {}
+    counts, flash = dict(launches=0, mma=0, simt=0), 0
+
+    def step(name, fn):
+        """Run one entry point: its seconds, and its kernel launches with
+        the counts set to 0 just before and read just after (the direct
+        searches its results are held against run outside any step)."""
+        nonlocal flash
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        for key, n in stage2_counts().items():
+            counts[key] += n
+        flash += fa.flash_attention.launches
+        print(f"[examples] {name}: {seconds[name]:.2f}s")
+        return out
+
+    def run(name, module, argv):
+        return step(name, lambda: module.main(argv + dev_args))
+
+    try:
+        fx = os.path.join(root, "fx")
+        collection_tsv, queries_tsv, qrels = (os.path.join(fx, f) for f in (
+            "collection.tsv", "queries.tsv", "qrels.txt"))
+        run("make_eval_fixture", make_eval_fixture,
+            [fx, "--n", str(n_passages), "--queries", str(EXAMPLES_QUERIES)])
+        with open(collection_tsv) as f:
+            collection = [line.rstrip("\n").split("\t", 1)[1] for line in f]
+        _, queries = load_queries_tsv(queries_tsv)
+        check(len(collection) == n_passages and len(queries) == EXAMPLES_QUERIES,
+              "examples: the fixture's sizes")
+        ckpt, idx = os.path.join(root, "ckpt"), os.path.join(root, "idx")
+        step("write_bench_checkpoint",
+             lambda: write_bench_checkpoint(ckpt, device=device, bert_config=bert_cfg))
+        run("indexing", indexing, [ckpt, collection_tsv, idx])
+        plan = check_index_consistent(idx, n_passages, "indexing")
+        print(f"[examples] indexing: {plan['num_embeddings']} embeddings, "
+              f"{plan['num_partitions']} partitions, {plan['num_chunks']} chunks")
+
+        direct = Searcher(idx, device=device)
+        dp, ds = direct.search(queries[0], k=10)
+        runs = [("searching", [])]
+        if bert_cfg is None:  # --random-weights loads the checkpoint's seeded bert-base weights
+            runs.append(("searching --random-weights", ["--random-weights"]))
+        for name, extra in runs:
+            [(p, s)] = run(name, searching, [idx, queries[0], "-k", "10"] + extra)
+            why = agree_up_to_ties(p[None], s[None], dp[None], ds[None], TOL)
+            check(why is None, f"examples: {name} differs from a direct Searcher.search: {why}")
+        base_nprobe = direct.config.nprobe
+        del direct
+
+        report = run("evaluate", evaluate, [idx, queries_tsv, qrels])
+        check(report["num_queries"] == EXAMPLES_QUERIES and report["qps"] > 0
+              and all(0.0 <= report[m] <= 1.0 for m in ("mrr@10", "success@5", "ndcg@10")),
+              f"examples: evaluate report {report}")
+        print(f"[examples] evaluate: MRR@10 {report['mrr@10']:.4f} Success@5 "
+              f"{report['success@5']:.4f} nDCG@10 {report['ndcg@10']:.4f} QPS "
+              f"{report['qps']:.2f} (random weights: information only)")
+
+        res = run("tune --apply-to config", tune, [idx, queries_tsv, "--apply-to", "config"])
+        saved, p = ColBERTConfig.load(os.path.join(idx, "config.json")), res.chosen.point
+        check((saved.plaid_stage2_docs, saved.plaid_stage1_refine, saved.refine_width_factor,
+               saved.nprobe) == (p.ncandidates, p.stage1_refine, p.refine_width,
+                                 base_nprobe + p.nprobe_delta)
+              and (p.max_candidates is None or saved.search_max_candidates == p.max_candidates),
+              f"examples: tune chose {p.label()} but config.json holds {saved.to_dict()}")
+
+        added = synthetic_passages(EXAMPLES_ADD, seed=8)
+        new_pids = run("update add", update, [idx, "add", *added])
+        check(np.array_equal(new_pids, np.arange(n_passages, n_passages + EXAMPLES_ADD)),
+              f"examples: update add gave pids {new_pids}")
+        check_index_consistent(idx, n_passages + EXAMPLES_ADD, "update add")
+        removed = np.random.default_rng(15).choice(n_passages + EXAMPLES_ADD, EXAMPLES_REMOVE,
+                                                   replace=False)
+        run("update remove", update, [idx, "remove", *map(str, removed)])
+        check(np.array_equal(fmt.load_deleted(idx), np.sort(removed)),
+              "examples: update remove: tombstones")
+        check_index_consistent(idx, n_passages + EXAMPLES_ADD, "update remove")
+        pid_map = run("update compact", update, [idx, "compact"])
+        n_kept = n_passages + EXAMPLES_ADD - EXAMPLES_REMOVE
+        check_index_consistent(idx, n_kept, "update compact")
+        check(len(fmt.load_deleted(idx)) == 0 and int((pid_map >= 0).sum()) == n_kept
+              and bool((pid_map[removed] == -1).all()), "examples: update compact: pid map")
+
+        after = Searcher(idx, device=device)
+        served = queries[:EXAMPLES_HTTP]
+        port = free_port()
+        log_path = os.path.join(root, "serve.log")
+
+        def server_log() -> str:
+            with open(log_path) as f:
+                return f.read()[-2000:]
+
+        with open(log_path, "w") as log:
+            server = subprocess.Popen(
+                [sys.executable, "-m", "colbert_torch.examples.serve", idx, "--port", str(port)]
+                + dev_args, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            t0 = time.perf_counter()
+            while _http(port, "/health")[0] != 200:
+                check(server.poll() is None,
+                      f"examples: serve exited with {server.returncode}: {server_log()}")
+                check(time.perf_counter() - t0 < SERVE_START_S,
+                      f"examples: serve not healthy in {SERVE_START_S}s")
+                time.sleep(0.5)
+            seconds["serve start"] = time.perf_counter() - t0
+            print(f"[examples] serve start (subprocess, /health 200): "
+                  f"{seconds['serve start']:.2f}s")
+            replies = step(f"serve {len(served)} POST /search",
+                           lambda: [_http(port, "/search", {"query": q, "k": 10}) for q in served])
+            check(all(code == 200 for code, _ in replies),
+                  f"examples: serve replies {[r for r in replies if r[0] != 200][:2]}")
+            for q, (_, body) in zip(served, replies):
+                dp, ds = after.search_batch([q], k=10)
+                why = agree_up_to_ties(np.asarray(body["pids"])[None],
+                                       np.asarray(body["scores"], np.float32)[None],
+                                       dp, ds, TOL)
+                check(why is None, f"examples: served {q!r} differs from direct search: {why}")
+            health = _http(port, "/health")
+            check(health[0] == 200 and health[1]["n_passages"] == n_kept,
+                  f"examples: /health {health}")
+            check(server.poll() is None, f"examples: serve died: {server_log()}")
+        finally:
+            if server.poll() is None:
+                server.terminate()
+                try:
+                    server.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    server.kill()
+                    server.wait()
+        print(f"[examples] serve: {len(served)} replies equal a direct search_batch of each "
+              f"query alone, up to ties at {TOL}; server stopped")
+        del after
+
+        triples_tsv, trained = os.path.join(root, "triples.tsv"), os.path.join(root, "trained")
+        with open(triples_tsv, "w") as f:
+            f.writelines("\t".join(t) + "\n" for t in make_triples(collection, EXAMPLES_TRIPLES))
+        run("train", train, [ckpt, triples_tsv, trained])
+        _, before, _ = load_checkpoint(ckpt, device=device)
+        _, model, tokenizer = load_checkpoint(trained, device=device)
+        moved = sum(not torch.equal(a, b) for a, b in zip(before.state_dict().values(),
+                                                           model.state_dict().values()))
+        check(moved > 0, "examples: train: the saved checkpoint equals its input")
+        enc = ColBERTEncoder(model, tokenizer, ColBERTConfig.load(os.path.join(idx, "config.json")),
+                             device=device)
+        p, s = Searcher(idx, encoder=enc, device=device).search_batch(queries[:BATCH], k=10)
+        check(p.shape == (BATCH, 10) and bool(((p >= 0) & (p < n_kept)).all())
+              and bool(np.isfinite(s).all()), "examples: train: search with the trained encoder")
+        print(f"[examples] train: the checkpoint loads back, {moved}/{len(before.state_dict())} "
+              f"tensors moved; a Searcher with it answers {BATCH} queries")
+        graft_check(device, step, bert_cfg)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print("[examples] seconds " + json.dumps({k: round(v, 4) for k, v in seconds.items()})
+          + f"; stage-2 launches {counts}; flash launches {flash}")
+    check_stage2_all_mma(device, counts, "examples")
+    return dict(examples_seconds=seconds, examples_launches=counts["launches"],
+                examples_flash_launches=flash, examples_eval=report)
+
+
+def graft_check(device, step, bert_cfg=None) -> None:
+    """The forward-step hook at its defaults on the card (a bert-base
+    ColBERT doc encode, B=8 L=128, bf16; ``bert_cfg`` narrows it for a
+    CPU rehearsal): finite embeddings of the hook's shape, each kept
+    token's within cosine IN_SITU_MIN_COS of the same model's fp32 encode
+    of the same batch, and dropped tokens zero in both."""
+    import torch
+
+    from colbert_torch.graft_entry import entry
+    from colbert_torch.models.colbert import ColBERT
+
+    fn, args = entry(**({} if device.type == "cuda" else {"device": "cpu"}),
+                     bert_config=bert_cfg)
+    model, ids, mask, keep = args
+    check(ids.device.type == device.type, f"graft_entry: args on {ids.device}, not {device}")
+    fn(*args)  # warm-up
+    got = step("graft_entry forward (bf16)", lambda: fn(*args))
+    with torch.no_grad():
+        want = ColBERT.encode_batch(model, ids, mask, keep, dtype_name="float32")
+    got, want = got.float(), want.float()
+    cos = float((got * want).sum(-1)[keep].min())
+    zero = bool((got[~keep] == 0).all() and (want[~keep] == 0).all())
+    print(f"[examples] graft_entry: {tuple(got.shape)} embeddings in bf16 against fp32: "
+          f"least cosine of a kept token {cos:.6f} (limit {IN_SITU_MIN_COS}); "
+          f"dropped tokens zero: {zero}")
+    check(got.shape == (8, 128, 128) and bool(torch.isfinite(got).all()) and zero
+          and cos >= IN_SITU_MIN_COS, f"graft_entry: bf16 vs fp32 cosine {cos}, zero {zero}")
+
+
+def quality_phase(device, *, n_passages: int = QUALITY_PASSAGES,
+                  steps: int = QUALITY_STEPS) -> dict:
+    """[quality]: ``quality.main`` in process (its JSON line printed), every
+    recall in [0, 1], and the quality-first point's stage-2 scores of the
+    pids it returns within TOL of the exact oracle's (TF32 off). The point
+    is picked out by its arguments, whatever order ``measure`` runs its
+    searches in."""
+    from colbert_torch.evaluation import quality
+    from colbert_torch.ops import flash_attention as fa
+    from colbert_torch.retrieval.device_index import DeviceIndex
+
+    seen = {"quality-first": []}
+    oracle, search = quality.exhaustive_scores, DeviceIndex.search_Q_batch
+
+    def recording_oracle(searcher, Q, **kw):
+        seen["oracle"] = oracle(searcher, Q, **kw)
+        c = searcher.config
+        seen["quality-first point"] = dict(
+            nprobe=searcher.device_index.compensated_nprobe(c.nprobe),
+            ncandidates=c.plaid_stage2_docs or max(16 * 100, 1024), stage1_refine=True)
+        return seen["oracle"]
+
+    def recording_search(index, Q, **kw):
+        out = search(index, Q, **kw)
+        # measure()'s quality-first point: the compensated nprobe, the
+        # default stage-2 budget and the refine at its default width
+        point = seen.get("quality-first point", {})
+        if "refine_width" not in kw and point and all(kw.get(k) == v for k, v in point.items()):
+            seen["quality-first"].append(out)
+        return out
+
+    reset_counts()
+    quality.exhaustive_scores, DeviceIndex.search_Q_batch = recording_oracle, recording_search
+    try:
+        t0 = time.perf_counter()
+        summary = quality.main([str(n_passages), str(steps)]
+                               + ([] if device.type == "cuda" else ["--device", "cpu"]))
+        dt = time.perf_counter() - t0
+    finally:
+        quality.exhaustive_scores, DeviceIndex.search_Q_batch = oracle, search
+    counts = stage2_counts()
+    flash = fa.flash_attention.launches
+    # one search, or more where another point has the same arguments
+    check(len(seen["quality-first"]) >= 1, "quality: no search at the quality-first point")
+    pids, scores = (np.concatenate(a) for a in zip(*seen["quality-first"]))
+    oscores = np.concatenate([seen["oracle"]] * len(seen["quality-first"]))
+    valid = pids >= 0
+    err = float(np.abs(scores[valid] - np.take_along_axis(oscores, np.maximum(pids, 0), 1)[valid])
+                .max())
+    recalls = {k: summary[k] for k in ("value", "recall_at_100", "score_recall_at_10",
+                                       "self_retrieval_s1")}
+    print(f"[quality] {n_passages} passages, {steps} training steps in {dt:.1f}s; recalls "
+          f"{recalls}; the quality-first point's {int(valid.sum())} returned pids in "
+          f"{len(seen['quality-first'])} search(es) of 32 queries: max |stage-2 - oracle| "
+          f"{err:.3e}; stage-2 launches "
+          f"{counts}; flash launches {flash}")
+    check(all(0.0 <= v <= 1.0 for v in recalls.values()), f"quality: recalls {recalls}")
+    check(pids.shape[0] == 32 * len(seen["quality-first"]) and np.isfinite(err) and err <= TOL,
+          f"quality: stage-2 vs oracle {err} > {TOL}")
+    check(all(summary[k] > 0 for k in ("qps_b64_quality", "qps_b64_quality_rw2",
+                                       "qps_b64_probes_no_refine", "qps_b64_tuned")),
+          "quality: a QPS is not positive")
+    check_stage2_all_mma(device, counts, "quality")
+    return dict(quality=summary, quality_s=dt, quality_launches=counts["launches"],
+                quality_flash_launches=flash, quality_oracle_err=err)
+
+
 def kernel_label(mangled: str) -> str:
     """``flash_mma_kernel<bf16,64>`` (``stage2_mma_kernel<2>``) for the
     mangled name of that instantiation of one of the repo's kernels, else
@@ -1667,6 +2019,8 @@ def main() -> int:
     del enc
     tr = train_phase(device, bert_cfg=BertConfig(vocab_size=len(bench_vocab_tokenizer().vocab)),
                      work_dir=BUILD_DIR)
+    ex = examples_phase(device, BUILD_DIR)
+    ql = quality_phase(device)
 
     print(json.dumps({"qps": mp["qps"], "stream_qps": mp["stream_qps"],
                       "stages_ms": mp["stages_ms"],
@@ -1678,7 +2032,10 @@ def main() -> int:
                       "update_seconds": live["update_seconds"],
                       "update_eval": live["update_eval"],
                       "train": {k: v for k, v in tr.items()
-                                if k not in ("train_search_launches", "train_flash_launches")}}))
+                                if k not in ("train_search_launches", "train_flash_launches")},
+                      "examples_seconds": ex["examples_seconds"],
+                      "examples_eval": ex["examples_eval"], "quality": ql["quality"],
+                      "quality_s": ql["quality_s"]}))
     print(card_line())
     kernels = [dict(
         name="stage2_maxsim", route="cuda", variant="mma.sync-3xtf32",
@@ -1691,7 +2048,8 @@ def main() -> int:
         launches_by_path={"serve": mp["launches"], "build-search": bs["search_launches"],
                           "serve-batcher": live["batcher_launches"],
                           "serve-http": live["http_launches"], "tune": live["tune_launches"],
-                          "update": live["update_launches"], "train": tr["train_search_launches"]},
+                          "update": live["update_launches"], "train": tr["train_search_launches"],
+                          "examples": ex["examples_launches"], "quality": ql["quality_launches"]},
     ), dict(
         name="flash_attention", route="cuda", variant="mma.sync",
         source="colbert_torch/csrc/flash_attention.cu",
@@ -1701,7 +2059,9 @@ def main() -> int:
         bound_ms=fl["bound_ms"], bound_by=fl["bound_by"], library_ms=fl["library_ms"],
         launches_by_path={"build": bp["flash_launches"],
                           "update": live["update_flash_launches"],
-                          "train": tr["train_flash_launches"]},
+                          "train": tr["train_flash_launches"],
+                          "examples": ex["examples_flash_launches"],
+                          "quality": ql["quality_flash_launches"]},
     )]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,25 +4,33 @@ A tiny vocab, synthetic passages, a random-weight encoder seeded from a
 ``torch.Generator``, and ``synthesize_index``, which writes a complete,
 loadable index with random but mutually consistent codec, chunks, IVF and
 plan, without any encoder (its random draws are numpy's, so the same seed
-writes the same index as the JAX package's function), and the long-document
-corpus of the build smoke run (``bench_vocab_tokenizer``,
-``synthetic_passages``: copies of ``bench.py``'s helpers), and the training
-triples over it (``make_triples``: a copy of ``bench_quality.py``'s).
+writes the same index as the JAX package's function), and the bench corpus
+and its encoder (``bench_vocab_tokenizer``, ``synthetic_passages``,
+``synthetic_queries``, ``bench_bert_config``, ``make_bench_encoder``,
+``time_qps``: copies of ``bench.py``'s helpers, the weights drawn from a
+``torch.Generator``), a checkpoint directory of that encoder
+(``write_bench_checkpoint``) for the entry points that load one, and the
+training triples over the corpus (``make_triples``: a copy of
+``bench_quality.py``'s).
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 
 from colbert_torch.config import ColBERTConfig
 from colbert_torch.models.bert import BertConfig
-from colbert_torch.models.colbert import init_colbert
+from colbert_torch.models.colbert import ColBERT, init_colbert
 from colbert_torch.models.encoder import ColBERTEncoder
 from colbert_torch.tokenization.wordpiece import WordPieceTokenizer
 
 __all__ = ["make_vocab", "make_encoder", "synthetic_collection", "synthesize_index",
-           "bench_vocab_tokenizer", "synthetic_passages", "make_triples"]
+           "bench_vocab_tokenizer", "synthetic_passages", "synthetic_queries",
+           "bench_bert_config", "make_bench_encoder", "write_bench_checkpoint", "time_qps",
+           "make_triples"]
 
 _SPECIALS = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "[unused0]", "[unused1]"]
 _BASE_WORDS = [
@@ -194,6 +202,71 @@ def synthetic_passages(n: int, mean_words: int = 110, n_words: int = 2000,
         rng.shuffle(ids)
         out.append(" ".join([names[j] for j in ids.tolist()]))
     return out
+
+
+def synthetic_queries(n: int, n_words: int = 2000, n_topics: int = N_TOPICS) -> list[str]:
+    """``n`` eight-word queries, each from one topic's words (bench.py's)."""
+    rng = np.random.default_rng(11)
+    out = []
+    for _ in range(n):
+        words = _topic_words(int(rng.integers(0, n_topics)), n_words, n_topics)
+        out.append(" ".join(f"word{i:05d}" for i in rng.choice(words, size=8)))
+    return out
+
+
+def bench_bert_config() -> BertConfig:
+    """bert-base: 12 layers, hidden 768, 12 heads, a 30,522-token vocab."""
+    return BertConfig(vocab_size=30522, hidden_size=768, num_hidden_layers=12,
+                      num_attention_heads=12, intermediate_size=3072)
+
+
+def make_bench_encoder(
+    n_words: int = 2000, *, device: str | torch.device = "cuda", seed: int = 0,
+    bert_config: BertConfig | None = None, model: ColBERT | None = None,
+) -> tuple[ColBERTEncoder, ColBERTConfig]:
+    """bench.py's encoder -> (encoder, its config): the corpus vocabulary,
+    bench.py's configuration, and a ColBERT (dim 128) with random weights
+    from ``torch.Generator().manual_seed(seed)`` at ``bert_config`` (default
+    bert-base), or ``model`` as given. The encoder holds the returned config
+    object itself, so changing one changes the other."""
+    tokenizer = bench_vocab_tokenizer(n_words)
+    cfg = ColBERTConfig(
+        dim=128, doc_maxlen=300, query_maxlen=32, index_bsize=256,
+        # the corpus tokenizes to ~150-160 tokens: 32-wide buckets pad least
+        length_bucket=32, nbits=2, kmeans_niters=4, chunksize=4096,
+        search_max_candidates=2048,
+    )
+    if model is None:
+        model = init_colbert(bert_config or bench_bert_config(), 128,
+                             generator=torch.Generator().manual_seed(seed))
+    return ColBERTEncoder(model, tokenizer, cfg, device=device), cfg
+
+
+def write_bench_checkpoint(directory: str, *, device: str | torch.device = "cuda",
+                           bert_config: BertConfig | None = None) -> str:
+    """Write :func:`make_bench_encoder`'s model (at ``bert_config``, default
+    bert-base) and tokenizer as an HF checkpoint directory, which both
+    packages load -> ``directory``."""
+    from colbert_torch.models.hf_loader import save_checkpoint
+
+    enc, _ = make_bench_encoder(device=device, bert_config=bert_config)
+    save_checkpoint(directory, enc.model, enc.tokenizer)
+    return directory
+
+
+def time_qps(searcher, queries: list[str], B: int, reps: int = 3, k: int = 10) -> float:
+    """Queries per second of ``searcher.search_batch`` at batch ``B``: the
+    best of ``reps`` batches (each ends in the results' read-back) after
+    one warm-up batch."""
+    pool = max(1, len(queries) - B)
+    searcher.search_batch(queries[:B], k=k)
+    best = float("inf")
+    for r in range(reps):
+        off = (r * 37) % pool
+        t = time.perf_counter()
+        searcher.search_batch(queries[off:off + B], k=k)
+        best = min(best, time.perf_counter() - t)
+    return B / best
 
 
 def make_triples(

@@ -10,7 +10,9 @@ the device and alignment rules of the wrappers; and the life of a live index
 on the card against the port on the CPU: ``IndexUpdater.add`` (codes equal up
 to near-ties), the exact oracle (within 1e-4) and a ``BatchingSearcher``
 whose loop thread launches and finishes the searches (the same pids and
-scores as direct ``search_batch`` of the same batches). Every test skips
+scores as direct ``search_batch`` of the same batches); and the
+``searching`` and ``evaluate`` entry points at their default device, every
+stage-2 launch through the ``mma`` kernel. Every test skips
 without a GPU. This file imports no JAX; on a machine without JAX run it as
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -321,3 +323,28 @@ def test_batcher_thread_matches_direct_search(cuda_device, tmp_path):
         for i, q in enumerate(bt):
             np.testing.assert_array_equal(got[q][0], direct_p[i])
             np.testing.assert_array_equal(got[q][1], direct_s[i])
+
+
+@pytest.mark.cuda
+def test_search_and_evaluate_examples_run_the_kernel(cuda_device, tmp_path):
+    """``searching.main`` and ``evaluate.main`` at their default device on
+    a synthetic index, with the seeded bert-base bench encoder: every
+    stage-2 launch is the tensor-core ``mma`` kernel."""
+    from colbert_torch.examples import evaluate, searching
+    from colbert_torch.utils.testing import synthesize_index, synthetic_queries
+
+    path = str(tmp_path / "idx")
+    synthesize_index(path, 2000, dim=128, nbits=2, avg_doclen=40, seed=1)
+    queries = synthetic_queries(8)
+    (tmp_path / "queries.tsv").write_text("".join(f"q{i}\t{q}\n" for i, q in enumerate(queries)))
+    (tmp_path / "qrels.txt").write_text("".join(f"q{i} 0 {7 * i} 1\n" for i in range(8)))
+    before = fm.stage2_maxsim.launches
+    mma = fm.stage2_maxsim.variant_launches["mma"]
+    [(pids, scores)] = searching.main([path, queries[0], "-k", "5", "--random-weights"])
+    assert pids.shape == scores.shape == (5,) and ((pids >= 0) & (pids < 2000)).all()
+    assert np.isfinite(scores).all() and (np.diff(scores) <= 1e-6).all()
+    report = evaluate.main([path, str(tmp_path / "queries.tsv"), str(tmp_path / "qrels.txt"),
+                            "--random-weights"])
+    assert report["num_queries"] == 8 and report["qps"] > 0
+    launches = fm.stage2_maxsim.launches - before
+    assert launches == 2 and fm.stage2_maxsim.variant_launches["mma"] - mma == launches

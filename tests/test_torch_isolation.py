@@ -26,7 +26,10 @@ def test_package_imports_no_jax():
                  "indexing.updater", "ops.maxsim", "retrieval.ranking",
                  "evaluation.metrics", "evaluation.runner", "evaluation.oracle",
                  "evaluation.autotune", "serving.batcher", "serving.http",
-                 "training.trainer"):
+                 "training.trainer", "examples.searching", "examples.indexing",
+                 "examples.make_eval_fixture", "examples.evaluate", "examples.tune",
+                 "examples.update", "examples.serve", "examples.train",
+                 "evaluation.quality", "graft_entry", "utils.testing"):
         assert f"colbert_torch.{name}" in names
     code = (
         "import importlib, sys\n"
@@ -35,6 +38,8 @@ def test_package_imports_no_jax():
         "import colbert_torch\n"
         "colbert_torch.Searcher, colbert_torch.Indexer, colbert_torch.IndexUpdater\n"
         "colbert_torch.ColBERTTrainer\n"
+        "from colbert_torch.utils.testing import (bench_bert_config, make_bench_encoder,\n"
+        "    synthetic_queries, time_qps, write_bench_checkpoint)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'colbert_tpu' or m.startswith('colbert_tpu.'))\n"
         "print(bad)\n"
