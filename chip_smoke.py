@@ -126,7 +126,24 @@
    stage-2 scores, for the pids it returns, within 1e-4 of the exact
    oracle's. Every in-process stage-2 launch of
    both phases is checked to be ``mma``.
-10. Prints the card's name and power limit, a ``kernels`` JSON line (each
+10. ``[multidevice]``: the mesh layer on the one card, shards on a
+   repeated device list (the port's stand-in for virtual devices). On the
+   [serve] index, ``Searcher(backend="sharded")`` over 4 shards: QPS of 3
+   batches of 32 after a warm-up, traced stages, 4 ``mma`` stage-2 launches
+   per batch, every score of a batch within 1e-4 of the exact MaxSim of its
+   pid, set-overlap@10 with the single-device backend (information), a
+   ``BatchingSearcher`` over it (64 queries, 8 threads, each result equal to
+   a direct search of its batch), and the same search inside a one-process
+   NCCL group (equal up to ties). Then ``Indexer`` with mesh_data_axis=2 on
+   4,096 passages of the [build] corpus at the flash-probe configuration
+   (every flash launch ``mma``, the sharded codec trainer and histogram
+   quantiles ran, self-retrieval success@1 >= 0.95 in the single-device
+   Searcher); one 32-passage S=512 batch encoded DP 2x1 and TP 1x2 (6 heads
+   per shard through flash) against the one-device encode (bf16 cosine >=
+   0.999, fp32 within 1e-4); ``kmeans_sharded`` on 4 shards against
+   ``kmeans`` on 256 separated clusters (1e-4); ``dryrun_multichip(4)``. Prints the seconds of each
+   part beside the card.
+11. Prints the card's name and power limit, a ``kernels`` JSON line (each
    kernel's launches on the main path and by path), and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -185,6 +202,12 @@ EXAMPLES_REMOVE = 32
 EXAMPLES_HTTP = 16          # POST /search to the served example, one at a time
 EXAMPLES_TRIPLES = 512      # train: one epoch at the default batch of 32
 SERVE_START_S = 120
+MD_SHARDS = 4               # [multidevice]: data shards of the sharded searcher
+MD_BATCHER_QUERIES = 64
+MD_BUILD_PASSAGES = 4_096   # the mesh build's corpus (the [build] corpus' first passages)
+MD_ENCODE_ROWS = 32         # rows of the DP/TP encode batch
+MD_KMEANS_ROWS = 16_384
+MD_KMEANS_K = 256
 QUALITY_PASSAGES = 16_384   # [quality]: the drill's corpus and training steps
 QUALITY_STEPS = 100
 
@@ -688,11 +711,10 @@ def flash_sweep(device, path_mask) -> None:
     import torch
     import torch.nn.functional as F
 
-    from colbert_torch.models.bert import BertConfig, BertLayer
+    from colbert_torch.models.bert import _attention
     from colbert_torch.ops import flash_attention as fa
 
     rng = np.random.default_rng(4)
-    layer = BertLayer(BertConfig())  # its attention has no weights; they stay on the host
     lens = path_mask.sum(1)
     for S in (128, 256, 512):
         B = SWEEP_ROWS // S
@@ -704,7 +726,7 @@ def flash_sweep(device, path_mask) -> None:
         kern = lambda: fa.flash_attention(q, k, v, bias, num_heads=12)  # noqa: E731
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qs, ks, vs, attn_mask=mask4.to(torch.bfloat16))
-        mat = lambda: layer._attention(qb, kb, vb, mask4)  # noqa: E731
+        mat = lambda: _attention(qb, kb, vb, mask4, 12)  # noqa: E731
         k1, s1, m1 = time_ms(kern, 10), time_ms(sdpa, 10), time_ms(mat, 3)
         k2 = time_ms(kern, 10)
         bound, by = flash_bound_ms(B, 12, S, 64, 2)
@@ -1149,6 +1171,284 @@ def tune_phase(searcher, n_words: int) -> dict:
         check(not torch.backends.cuda.matmul.allow_tf32, "tune: TF32 must stay off")
     return dict(oracle_s=dt_oracle, oracle_err=err, tune_s=dt_tune,
                 tune_launches=counts["launches"])
+
+
+# ---------------------------------------------------------------------------
+# [multidevice]: the mesh layer on one card (shards on a repeated device)
+# ---------------------------------------------------------------------------
+
+
+def mesh_devices(device, n: int) -> list:
+    """``n`` mesh cells on ``device``: the port's stand-in for virtual
+    devices, a card (or the CPU) repeated explicitly."""
+    import torch
+
+    from colbert_torch.parallel.mesh import canonical
+
+    return [canonical(torch.device(device))] * n
+
+
+def multidevice_serve(searcher, n_words: int, index_dir: str) -> dict:
+    """[multidevice] 1-2: ``Searcher(backend="sharded")`` over MD_SHARDS
+    shards of the [serve] index on one card: QPS, traced stages, MD_SHARDS
+    ``mma`` stage-2 launches per batch, every score within TOL of the exact
+    MaxSim of its pid, set-overlap@10 with the single-device backend, the
+    batcher over it (each result equal to a direct search of its batch),
+    then the same search inside a one-process NCCL group (gloo on the CPU),
+    equal up to ties."""
+    import torch
+    import torch.distributed as dist
+
+    from colbert_torch.evaluation.oracle import exhaustive_scores
+    from colbert_torch.parallel import launch
+    from colbert_torch.retrieval.searcher import Searcher
+    from colbert_torch.serving import BatchingSearcher
+    from colbert_torch.utils.tracing import Tracer
+
+    dev = searcher.device
+    t0 = time.perf_counter()
+    sh = Searcher(index_dir, encoder=searcher.encoder, backend="sharded",
+                  device=mesh_devices(dev, MD_SHARDS))
+    load_s = time.perf_counter() - t0
+    six = sh.sharded_index
+    print(f"[multidevice] sharded searcher over {sh.mesh.shape} on "
+          f"{[str(d) for d in sh.mesh.devices[:, 0]]} loaded in {load_s:.2f}s; pid_base "
+          f"{six.pid_base.tolist()}; cell_cap={sh.cell_cap} max_candidates="
+          f"{sh.max_candidates} search kwargs={sh._search_kwargs(10)}")
+    check(sh.mesh.shape == {"data": MD_SHARDS, "model": 1} and len(six.shards) == MD_SHARDS,
+          "multidevice: sharded searcher mesh")
+    batches = [unique_queries(21 + i, BATCH, n_words) for i in range(N_BATCHES + 1)]
+    sh.search_batch(batches[0], k=10)  # warm-up
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    results = [sh.search_batch(b, k=10) for b in batches[1:]]
+    dt = time.perf_counter() - t0
+    counts = stage2_counts()
+    qps = BATCH * N_BATCHES / dt
+    tracer = Tracer()
+    sh.tracer = tracer
+    for b in batches[1:]:
+        sh.search_batch(b, k=10)
+    sh.tracer = None
+    stages = {k: v["seconds"] / N_BATCHES * 1e3 for k, v in tracer.as_dict().items()}
+    print(f"[multidevice] sharded search_batch: {N_BATCHES} x B={BATCH} in {dt:.4f}s -> QPS "
+          f"{qps:.2f}; stage-2 launches {counts} ({MD_SHARDS} shards x {N_BATCHES} batches) "
+          f"on {card_line()}")
+    print("[multidevice] per-stage ms per batch, summed over the shards (traced, device "
+          "synchronized per stage): " + json.dumps({k: round(v, 4) for k, v in stages.items()}))
+    if dev.type == "cuda":
+        check(counts == {"mma": MD_SHARDS * N_BATCHES, "simt": 0,
+                         "launches": MD_SHARDS * N_BATCHES},
+              f"multidevice: stage-2 launches {counts}, expected {MD_SHARDS} mma per batch")
+
+    Q = sh.encoder.encode_queries_device(batches[1])
+    oracle = exhaustive_scores(sh, Q)
+    overlap = []
+    for b, (p, s) in zip(batches[1:], results):
+        check(p.shape == (BATCH, 10) and bool((p >= 0).all()) and bool(np.isfinite(s).all()),
+              "multidevice: result shape or empty slots")
+        check(bool((np.diff(s, axis=1) <= 1e-6).all()), "multidevice: scores not descending")
+        sp, _ = searcher.search_batch(b, k=10)
+        overlap += [len(set(p[r]) & set(sp[r])) / 10 for r in range(BATCH)]
+    p, s = results[0]
+    err = float(np.abs(s - np.take_along_axis(oracle, p, 1)).max())
+    print(f"[multidevice] every score of batch 1 vs the exact MaxSim of its pid: max |diff| "
+          f"{err:.3e} (limit {TOL}); set-overlap@10 with the single-device backend over "
+          f"{len(overlap)} queries: mean {np.mean(overlap):.4f}, min {min(overlap):.1f}")
+    check(err <= TOL, f"multidevice: sharded score vs exact MaxSim {err} > {TOL}")
+
+    queries = unique_queries(23, MD_BATCHER_QUERIES, n_words)
+    served, errors = {}, []
+    with recorded_batches(sh) as formed:
+        with BatchingSearcher(sh, max_batch=BATCH, max_wait_ms=5, max_inflight=2) as batcher:
+            def client(i):
+                for q, f in [(q, batcher.submit(q, k=10)) for q in queries[i::8]]:
+                    try:
+                        served[q] = f.result(timeout=600)
+                    except Exception as e:  # counted and checked below
+                        errors.append(f"{q!r}: {e!r}")
+
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(8) as ex:
+                list(ex.map(client, range(8)))
+            dt_b = time.perf_counter() - t0
+    check(not errors and len(served) == len(queries), f"multidevice batcher: {errors[:3]}")
+    n_formed = check_against_direct(sh, formed, served, "multidevice-batcher")
+    print(f"[multidevice] batcher over the sharded searcher: {len(queries)} queries from 8 "
+          f"threads in {dt_b:.4f}s -> {len(queries) / dt_b:.2f} queries/s; {n_formed} batches, "
+          f"each result equal to a direct search of its batch; on {card_line()}")
+
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    launch.initialize(f"127.0.0.1:{free_port()}", 1, 0, backend=backend)
+    try:
+        check(dist.get_backend() == backend and launch.process_count() == 1,
+              "multidevice: process group")
+        reset_counts()
+        pn, sn = sh.search_batch(batches[1], k=10)
+        nccl_counts = stage2_counts()
+    finally:
+        dist.destroy_process_group()
+    why = agree_up_to_ties(p, s, pn, sn, TOL)
+    print(f"[multidevice] the same search in a one-process {backend} group (collectives "
+          f"through {backend}): equal up to ties {why is None}; stage-2 launches {nccl_counts}")
+    check(why is None, f"multidevice: {backend} search differs: {why}")
+    return dict(md_qps=qps, md_stages_ms=stages, md_launches=counts["launches"],
+                md_oracle_err=err, md_overlap10=float(np.mean(overlap)),
+                md_batcher_qps=len(queries) / dt_b, md_load_s=load_s)
+
+
+def multidevice_build(model, passages, work_dir: str) -> dict:
+    """[multidevice] 3: ``Indexer`` with mesh_data_axis=2 over two repeats
+    of the card at the flash-probe configuration: every flash launch
+    ``mma``, the sharded codec trainer and the histogram quantiles ran, the
+    index loads in the single-device ``Searcher`` and finds each of 64
+    passages first from its 40-word prefix (>= 0.95)."""
+    from colbert_torch.indexing import codec_trainer
+    from colbert_torch.indexing.builder import Indexer
+    from colbert_torch.ops import flash_attention as fa
+    from colbert_torch.ops import quantile
+    from colbert_torch.retrieval.searcher import Searcher
+    from colbert_torch.storage import format as fmt
+
+    dev = next(model.parameters()).device
+    enc = build_corpus_encoder(model, dev, build_config(mesh_data_axis=2))
+    index_dir = os.path.join(work_dir, "smoke_mesh_index")
+    shutil.rmtree(index_dir, ignore_errors=True)
+    ran = {"sharded_trainer": 0, "sharded_quantiles": 0}
+    trainer, quantiles = codec_trainer._train_codec_sharded, quantile.sharded_quantiles
+
+    def counted(name, fn):
+        def call(*a, **kw):
+            ran[name] += 1
+            return fn(*a, **kw)
+        return call
+
+    codec_trainer._train_codec_sharded = counted("sharded_trainer", trainer)
+    quantile.sharded_quantiles = counted("sharded_quantiles", quantiles)
+    reset_counts()
+    try:
+        t0 = time.perf_counter()
+        with counted_doc_batches(enc) as seen:
+            idx = Indexer(enc.config, encoder=enc, collection=passages,
+                          device=mesh_devices(dev, 2))
+            idx.index(index_dir)
+        wall = time.perf_counter() - t0
+    finally:
+        codec_trainer._train_codec_sharded, quantile.sharded_quantiles = trainer, quantiles
+    flash = dict(fa.flash_attention.variant_launches, launches=fa.flash_attention.launches)
+    plan = fmt.load_plan(index_dir)
+    layers = enc.bert_config.num_hidden_layers
+    print(f"[multidevice] mesh build {idx.mesh.shape}: {len(passages)} passages in {wall:.2f}s "
+          f"-> {len(passages) / wall:.2f} passages/s; phases (s) "
+          + json.dumps({k: v["seconds"] for k, v in plan["timings"].items()})
+          + f"; {plan['num_partitions']} partitions; encoded batches {seen['batches']} "
+          f"(flash-routed {seen['flash_batches']}); flash launches {flash} (expected "
+          f"{layers} x 2 shards x {seen['flash_batches']}); sharded codec calls {ran}; on "
+          f"{card_line()}")
+    check(ran == {"sharded_trainer": 1, "sharded_quantiles": 1},
+          f"multidevice build: the sharded codec trainer did not run: {ran}")
+    check(fmt.check_all_files_saved(index_dir) == [], "multidevice build: incomplete index")
+    if dev.type == "cuda":
+        check(seen["flash_batches"] == seen["batches"] > 0
+              and flash["launches"] == layers * 2 * seen["flash_batches"]
+              and flash["mma"] == flash["launches"] and flash["simt"] == 0,
+              f"multidevice build: flash launches {flash}")
+    one = build_corpus_encoder(model, dev, build_config())
+    searcher = Searcher(index_dir, encoder=one, device=dev)
+    rng = np.random.default_rng(6)
+    pids = rng.choice(len(passages), size=64, replace=False)
+    got, _ = searcher.search_batch([" ".join(passages[p].split()[:40]) for p in pids], k=10)
+    success = float((got[:, 0] == pids).mean())
+    print(f"[multidevice] the mesh-built index in the single-device Searcher: self-retrieval "
+          f"success@1 {success:.4f} over 64 prefix queries (limit 0.95)")
+    check(success >= 0.95, f"multidevice build: success@1 {success} < 0.95")
+    shutil.rmtree(index_dir, ignore_errors=True)
+    return dict(md_build_s=wall, md_build_phases=plan["timings"], md_build_success1=success,
+                md_flash_launches=flash["launches"])
+
+
+def multidevice_encodes(model, batch) -> dict:
+    """[multidevice] 4: one corpus batch at S=512 encoded data-parallel
+    (2x1) and tensor-parallel (1x2, 6 heads per shard through flash) on one
+    card against the one-device encode: bf16 per kept token cosine >= 0.999
+    (flash on), fp32 with TF32 off within 1e-4 (materialized attention);
+    ``kmeans_sharded`` over 4 shards against ``kmeans`` from the same rows
+    (separated clusters, one initial row in each)
+    at 1e-4; then ``dryrun_multichip(4)``."""
+    import torch
+
+    from colbert_torch.graft_entry import dryrun_multichip
+    from colbert_torch.models.encoder import ColBERTEncoder
+    from colbert_torch.ops import flash_attention as fa
+    from colbert_torch.ops import kmeans as kmeans_ops
+    from colbert_torch.parallel.kmeans_dist import kmeans_sharded
+    from colbert_torch.parallel.mesh import make_mesh
+
+    dev = next(model.parameters()).device
+    cfg = build_config()
+    one = build_corpus_encoder(model, dev, cfg)
+    _, ids, mask, keep = batch
+    ids, mask, keep = ids[:MD_ENCODE_ROWS], mask[:MD_ENCODE_ROWS], keep[:MD_ENCODE_ROWS]
+    flash = one._flash_for(ids.shape[1])
+    layers = one.bert_config.num_hidden_layers
+    kept = torch.from_numpy(keep).to(dev)
+    out = {}
+    with torch.no_grad():
+        ref16 = one._forward("encode_batch", ids, mask, keep, dtype_name="bfloat16",
+                             use_flash=flash)
+        ref32 = one._forward("encode_batch", ids, mask, keep, dtype_name="float32")
+        for name, shape in (("dp", (2, 1)), ("tp", (1, 2))):
+            enc = ColBERTEncoder(model, one.tokenizer, cfg, device=dev)
+            enc.attach_mesh(make_mesh(*shape, devices=mesh_devices(dev, 2)))
+            reset_counts()
+            t0 = time.perf_counter()
+            e16 = enc._forward("encode_batch", ids, mask, keep, dtype_name="bfloat16",
+                               use_flash=flash)[:len(ids)]
+            dt16 = time.perf_counter() - t0
+            f = dict(fa.flash_attention.variant_launches)
+            e32 = enc._forward("encode_batch", ids, mask, keep, dtype_name="float32")[:len(ids)]
+            cos = float((e16 * ref16).sum(-1)[kept].min())
+            err = float((e32 - ref32).abs()[kept].max())
+            print(f"[multidevice] {name} {shape} encode B={len(ids)} S={ids.shape[1]}: bf16 min "
+                  f"cosine {cos:.6f} (limit 0.999; {dt16:.4f}s), fp32 max |diff| {err:.3e} "
+                  f"(limit 1e-4); flash launches {f}")
+            check(cos >= 0.999, f"multidevice {name}: bf16 cosine {cos}")
+            check(err <= 1e-4, f"multidevice {name}: fp32 diff {err}")
+            if dev.type == "cuda":
+                check(f == {"mma": layers * 2, "simt": 0},
+                      f"multidevice {name}: flash launches {f}, expected {layers} x 2 mma")
+            out[f"md_{name}_cos"], out[f"md_{name}_err"] = cos, err
+            del enc
+
+    # MD_KMEANS_K well-separated clusters, one initial row in each: every
+    # assignment has a wide margin, so the two fits differ only by the
+    # order of their fp32 sums (random rows in 128 dimensions sit near
+    # equidistant from their two nearest centroids, and the sums' order on
+    # the card, index_add_'s atomics included, flips such near-ties)
+    rng = np.random.default_rng(3)
+    labels = np.arange(MD_KMEANS_ROWS) % MD_KMEANS_K
+    centers = rng.standard_normal((MD_KMEANS_K, 128)) * 4
+    data = torch.from_numpy((centers[labels] + rng.standard_normal((MD_KMEANS_ROWS, 128)))
+                            .astype(np.float32)).to(dev)
+    init = np.arange(MD_KMEANS_K)
+    t0 = time.perf_counter()
+    a = kmeans_sharded(data, MD_KMEANS_K, make_mesh(4, 1, devices=mesh_devices(dev, 4)),
+                       niters=5, init_idx=init)
+    dt_k = time.perf_counter() - t0
+    b = kmeans_ops.kmeans(data, MD_KMEANS_K, niters=5, init_idx=init)
+    kerr = float((a.centroids - b.centroids).abs().max())
+    flips = int((a.assignments != b.assignments).sum())
+    print(f"[multidevice] kmeans_sharded 4x1 ({MD_KMEANS_ROWS} x 128 in {MD_KMEANS_K} "
+          f"separated clusters, 5 iterations, {dt_k:.3f}s) vs kmeans: max |centroid diff| "
+          f"{kerr:.3e} (limit 1e-4); assignments differing {flips}")
+    check(kerr <= 1e-4, f"multidevice: kmeans_sharded vs kmeans {kerr}")
+    t0 = time.perf_counter()
+    line = dryrun_multichip(4, device=dev)
+    out.update(md_kmeans_err=kerr, md_dryrun_s=time.perf_counter() - t0, md_dryrun=line)
+    print(f"[multidevice] dryrun_multichip(4) done in {out['md_dryrun_s']:.2f}s on {card_line()}")
+    return out
 
 
 def update_phase(enc, passages, index_dir: str) -> dict:
@@ -1931,10 +2231,13 @@ def ptxas_resources(log: str) -> list[tuple[str, str, str]]:
 
 
 def card_line() -> str:
-    done = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
+    try:
+        done = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60,
+        )
+    except FileNotFoundError:  # a CPU rehearsal
+        return "no nvidia-smi"
     return done.stdout.strip().splitlines()[0] if done.returncode == 0 else "unknown"
 
 
@@ -1992,6 +2295,9 @@ def main() -> int:
         live = serve_batcher(searcher, mp["n_words"])
         live.update(serve_http(searcher, mp["n_words"]))
         live.update(tune_phase(searcher, mp["n_words"]))
+        t_md = time.perf_counter()
+        md = multidevice_serve(searcher, mp["n_words"], index_dir)
+        md_seconds = {"serve": time.perf_counter() - t_md}
         del searcher
     finally:
         shutil.rmtree(index_dir, ignore_errors=True)
@@ -2015,6 +2321,14 @@ def main() -> int:
         profile_build_steps(enc, first, build_dir)
     finally:
         shutil.rmtree(build_dir, ignore_errors=True)
+    t_md = time.perf_counter()
+    md.update(multidevice_build(enc.model, passages[:MD_BUILD_PASSAGES], BUILD_DIR))
+    md_seconds["build"] = time.perf_counter() - t_md
+    t_md = time.perf_counter()
+    md.update(multidevice_encodes(enc.model, first))
+    md_seconds["encodes_kmeans_dryrun"] = time.perf_counter() - t_md
+    print(f"[multidevice] seconds {json.dumps({k: round(v, 2) for k, v in md_seconds.items()})} "
+          f"on {card_line()}")
 
     del enc
     tr = train_phase(device, bert_cfg=BertConfig(vocab_size=len(bench_vocab_tokenizer().vocab)),
@@ -2035,7 +2349,8 @@ def main() -> int:
                                 if k not in ("train_search_launches", "train_flash_launches")},
                       "examples_seconds": ex["examples_seconds"],
                       "examples_eval": ex["examples_eval"], "quality": ql["quality"],
-                      "quality_s": ql["quality_s"]}))
+                      "quality_s": ql["quality_s"],
+                      "multidevice": {k: v for k, v in md.items() if k != "md_dryrun"}}))
     print(card_line())
     kernels = [dict(
         name="stage2_maxsim", route="cuda", variant="mma.sync-3xtf32",
@@ -2049,7 +2364,8 @@ def main() -> int:
                           "serve-batcher": live["batcher_launches"],
                           "serve-http": live["http_launches"], "tune": live["tune_launches"],
                           "update": live["update_launches"], "train": tr["train_search_launches"],
-                          "examples": ex["examples_launches"], "quality": ql["quality_launches"]},
+                          "examples": ex["examples_launches"], "quality": ql["quality_launches"],
+                          "multidevice": md["md_launches"]},
     ), dict(
         name="flash_attention", route="cuda", variant="mma.sync",
         source="colbert_torch/csrc/flash_attention.cu",
@@ -2061,7 +2377,8 @@ def main() -> int:
                           "update": live["update_flash_launches"],
                           "train": tr["train_flash_launches"],
                           "examples": ex["examples_flash_launches"],
-                          "quality": ql["quality_flash_launches"]},
+                          "quality": ql["quality_flash_launches"],
+                          "multidevice": md["md_flash_launches"]},
     )]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -23,9 +23,11 @@ Ported so far:
   oracle and the operating-point tuner);
 - fine-tuning the encoder: :class:`~colbert_torch.training.ColBERTTrainer`
   (three objectives, AdamW with the JAX trainer's schedules and clipping,
-  per-layer recompute) and HF checkpoint export that both packages load.
-
-The multi-device layer is still to come (ROADMAP.md).
+  per-layer recompute) and HF checkpoint export that both packages load;
+- the multi-device layer (:mod:`colbert_torch.parallel`): data- and
+  tensor-parallel encode and build, sharded k-means and quantiles, the
+  ``Searcher``'s ``"sharded"`` backend, and a multi-process launch over
+  ``torch.distributed``.
 """
 
 from colbert_torch.config import ColBERTConfig

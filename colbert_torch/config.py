@@ -89,8 +89,8 @@ class ColBERTConfig:
     transfer_dtype: str = "bfloat16"
     # mesh axis sizes; data axis shards batches/collection, model axis reserved
     # for tensor parallelism of the encoder (dense/attention head sharding).
-    # -1 => all available devices; the port drives the one device it is
-    # given until the multi-device layer (ROADMAP A12), and raises above 1
+    # -1 => every device of the entry point's device list (one device
+    # without a list); see colbert_torch.parallel.mesh
     mesh_data_axis: int = -1
     mesh_model_axis: int = 1
     # let the doc encoder route attention through the flash-attention

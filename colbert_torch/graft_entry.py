@@ -1,9 +1,10 @@
-"""The forward-step hook: one forward step of the flagship model, a
-bert-base ColBERT doc encode, as a function and its arguments (counterpart
-of ``entry`` in the JAX package's ``__graft_entry__.py``).
+"""Driver hooks (counterpart of the JAX package's ``__graft_entry__.py``):
 
-The multi-device dry run that file also holds needs the sharded modules
-and is not ported yet (ROADMAP A12).
+- :func:`entry`: one forward step of the flagship model, a bert-base
+  ColBERT doc encode, as a function and its arguments;
+- :func:`dryrun_multichip`: the sharded index-build step, the sharded
+  exhaustive scorer, the sharded index against the single-device one and
+  the tensor-parallel encode over an n-device mesh, on tiny shapes.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from colbert_torch.models.bert import BertConfig
 from colbert_torch.models.colbert import ColBERT, init_colbert
 from colbert_torch.utils.build import resolve_device
 
-__all__ = ["entry"]
+__all__ = ["entry", "dryrun_multichip"]
 
 
 def entry(*, device: str | torch.device = "cuda", bert_config: BertConfig | None = None,
@@ -42,3 +43,111 @@ def entry(*, device: str | torch.device = "cuda", bert_config: BertConfig | None
     keep = torch.from_numpy(rng.random((B, L)) > 0.1).to(dev)
     fn = torch.no_grad()(functools.partial(ColBERT.encode_batch, dtype_name=dtype))
     return fn, (model, ids, mask, keep)
+
+
+def dryrun_multichip(n_devices: int, *, device: str | torch.device = "cuda") -> str:
+    """Run the sharded programs once over an ``n_devices`` mesh on tiny
+    shapes (BERT of 2 layers at width 64, dim 32, nbits 2, 16 centroids)
+    and check them -> the summary line (also printed):
+
+    - the index-build step (DP encode, Lloyd statistics summed over the
+      shards, compression) gives codes, residuals and centroids of the
+      expected shapes and a finite shift;
+    - the sharded exhaustive scorer returns finite top-3 scores;
+    - a :class:`ShardedDeviceIndex` over the step's artifacts returns the
+      single-device :class:`DeviceIndex`'s top-k (exhaustive probing) up
+      to ties, scores within 1e-4;
+    - with ``n_devices >= 2``, the tensor-parallel encode over a
+      ``(n/2, 2)`` mesh equals the single-device fp32 encode within 1e-4.
+
+    With fewer cards than ``n_devices`` the mesh repeats the first card
+    (on ``device="cpu"``: the CPU), so every shard still runs."""
+    from colbert_torch.models.encoder import ColBERTEncoder
+    from colbert_torch.parallel.index_step import make_index_train_step
+    from colbert_torch.parallel.mesh import make_mesh
+    from colbert_torch.parallel.search_dist import score_full_sharded_topk
+    from colbert_torch.parallel.sharded_index import ShardedDeviceIndex
+    from colbert_torch.retrieval.device_index import DeviceIndex
+    from colbert_torch.utils.testing import make_encoder
+
+    dev = resolve_device(device)
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    devices = ([torch.device("cuda", i) for i in range(n_devices)] if cards >= n_devices
+               else [dev] * n_devices)
+    mesh = make_mesh(n_devices, 1, devices=devices)
+    cfg = BertConfig(vocab_size=256, hidden_size=64, num_hidden_layers=2,
+                     num_attention_heads=4, intermediate_size=128,
+                     max_position_embeddings=64)
+    dim, nbits, k = 32, 2, 16
+    model = init_colbert(cfg, dim, generator=torch.Generator().manual_seed(0)).to(dev).eval()
+
+    rng = np.random.default_rng(0)
+    B, L = 2 * n_devices, 16
+    ids = rng.integers(0, 256, (B, L))
+    mask = np.ones((B, L), bool)
+    keep = rng.random((B, L)) > 0.2
+    centroids = torch.as_tensor(rng.standard_normal((k, dim)), dtype=torch.float32).to(dev)
+    cutoffs = torch.as_tensor(np.sort(rng.standard_normal(3)), dtype=torch.float32).to(dev)
+    weights = torch.as_tensor(np.sort(rng.standard_normal(4)), dtype=torch.float32).to(dev)
+
+    step = make_index_train_step(mesh, cfg, nbits=nbits, num_partitions=k)
+    codes, residuals, new_centroids, shift = step(model, ids, mask, keep, centroids, cutoffs)
+    _check(tuple(codes.shape) == (B * L,), f"codes {tuple(codes.shape)}")
+    _check(tuple(residuals.shape) == (B * L, dim // 8 * nbits),
+           f"residuals {tuple(residuals.shape)}")
+    _check(tuple(new_centroids.shape) == (k, dim), f"centroids {tuple(new_centroids.shape)}")
+    _check(np.isfinite(shift), f"shift {shift}")
+
+    P_rows, Ld = 4 * n_devices, 8
+    codes_g = codes.cpu().numpy().view(np.uint32)[:P_rows * Ld].reshape(P_rows, Ld)
+    res_g = residuals.cpu().numpy()[:P_rows * Ld].reshape(P_rows, Ld, -1)
+    Q = torch.as_tensor(rng.standard_normal((2, 4, dim)), dtype=torch.float32).to(dev)
+    scores, _ = score_full_sharded_topk(Q, codes_g, res_g, np.ones((P_rows, Ld), bool),
+                                        new_centroids, weights, mesh, nbits=nbits, k=3)
+    _check(scores.shape == (2, 3) and bool(np.isfinite(scores).all()), f"scores {scores}")
+
+    flat_codes = codes_g.reshape(-1)
+    common = dict(centroids=new_centroids.cpu().numpy(), codes=flat_codes,
+                  residuals=res_g.reshape(-1, res_g.shape[-1]),
+                  doclens=np.full(P_rows, Ld, np.int64),
+                  bucket_weights=weights.cpu().numpy(), nbits=nbits)
+    sharded = ShardedDeviceIndex.build(mesh, balance_cap=8, **common)
+    single = DeviceIndex.build(
+        ivf=np.argsort(flat_codes, kind="stable").astype(np.int32),
+        ivf_lengths=np.bincount(flat_codes.astype(np.int64), minlength=k),
+        device=dev, **common)
+    kw = dict(k=3, ncandidates=P_rows, cell_cap=P_rows * Ld, max_candidates=4 * P_rows)
+    nprobe = max(sh.ivf_lengths.numel() for sh in sharded.shards.values())
+    p_sh, s_sh = sharded.search_Q_batch(Q, nprobe=nprobe, **kw)
+    p_1, s_1 = single.search_Q_batch(Q, nprobe=single.ivf_lengths.numel(), **kw)
+    _check(np.allclose(s_sh, s_1, rtol=1e-4, atol=1e-4), f"sharded {s_sh} vs {s_1}")
+    _check(bool((p_sh == p_1).all()) or np.allclose(np.sort(s_sh), np.sort(s_1),
+                                                    rtol=1e-4, atol=1e-4),
+           f"sharded pids {p_sh} vs {p_1}")
+
+    tp_err = None
+    if n_devices >= 2:
+        from colbert_torch.config import ColBERTConfig
+
+        ccfg = ColBERTConfig(dim=dim, doc_maxlen=L, activation_dtype="float32")
+        enc = make_encoder(dim=dim, config=ccfg, bert_config=cfg, device=dev)
+        tp_enc = ColBERTEncoder(enc.model, enc.tokenizer, ccfg, device=dev)
+        tp_enc.attach_mesh(make_mesh(n_devices // 2, 2, devices=devices))
+        with torch.no_grad():
+            ref = enc.model.encode_batch(*enc._put_batch(ids, mask, keep),
+                                         dtype_name="float32")
+            out = tp_enc._forward("encode_batch", ids, mask, keep, dtype_name="float32")[:B]
+        tp_err = float((out - ref).abs().max())
+        _check(tp_err <= 1e-4, f"tensor-parallel encode differs by {tp_err}")
+
+    line = (f"dryrun_multichip OK: mesh={mesh.shape} on {[str(d) for d in devices]}, "
+            f"codes={tuple(codes.shape)}, shift={shift:.4f}, sharded serving top-k == "
+            f"single-device top-k"
+            + (f", tp encode max err={tp_err:.2e}" if tp_err is not None else ""))
+    print(line)
+    return line
+
+
+def _check(cond: bool, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"dryrun_multichip: {what}")

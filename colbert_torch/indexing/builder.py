@@ -20,7 +20,13 @@ initial centroids, as in the JAX package, so both packages draw the same
 ones. Multi-rank striding (``config.nranks``/``rank``: each rank builds
 every ``nranks``-th chunk of a shared index directory, the last to finish
 builds the IVF) is host and file logic and works as in the JAX package.
-A data or model mesh above one device raises (ROADMAP A12).
+
+On a mesh (``config.mesh_data_axis`` or ``mesh_model_axis`` above 1; -1
+takes every device of the ``device`` list) the encoder runs data-parallel,
+and tensor-parallel over a model axis, and the codec trains sharded
+(sharded Lloyd, histogram quantiles), as the JAX package's mesh build does.
+``device`` may list the mesh's devices: ``["cuda:0"] * 2`` puts two data
+shards on one card.
 """
 
 from __future__ import annotations
@@ -41,7 +47,6 @@ from colbert_torch.indexing.planner import heldout_split_indices, sample_pids, s
 from colbert_torch.models.encoder import ColBERTEncoder
 from colbert_torch.storage import format as fmt
 from colbert_torch.storage.collection import Collection
-from colbert_torch.utils.build import resolve_device
 from colbert_torch.utils.tracing import Tracer, device_phase
 
 logger = logging.getLogger(__name__)
@@ -69,32 +74,40 @@ class Indexer:
     """Loads the model and the collection; ``indexer.index(path)`` builds.
 
     Construct from ``config.checkpoint`` (a HF ColBERT checkpoint directory)
-    or with a ready :class:`ColBERTEncoder`, which must live on ``device``.
+    or with a ready :class:`ColBERTEncoder`, which must live on ``device``
+    (the first device of a list).
     """
 
     config: ColBERTConfig
     encoder: ColBERTEncoder | None = None
     collection: Sequence[str] | str | None = None
-    device: str | torch.device = "cuda"
+    device: str | torch.device | list = "cuda"
 
     def __post_init__(self) -> None:
-        self.device = resolve_device(self.device)
-        if self.config.mesh_data_axis > 1 or self.config.mesh_model_axis > 1:
-            raise NotImplementedError(
-                "a device mesh (mesh_data_axis or mesh_model_axis > 1) is not "
-                "ported yet (ROADMAP A12); mesh_data_axis=-1 means the one device "
-                "this Indexer drives")
+        from colbert_torch.parallel.mesh import canonical, make_mesh, resolve_devices
+
+        self.device, devices = resolve_devices(self.device)
         if self.encoder is None:
             from colbert_torch.models.hf_loader import load_checkpoint
 
             _, model, tokenizer = load_checkpoint(self.config.checkpoint, device=self.device)
             self.encoder = ColBERTEncoder(model, tokenizer, self.config, device=self.device)
-        elif self.encoder.device != self.device:
+        elif canonical(self.encoder.device) != canonical(self.device):
             raise ValueError(f"the encoder is on {self.encoder.device}, the Indexer "
                              f"on {self.device}")
         self.passages = load_collection(
             self.collection if self.collection is not None else self.config.collection
         )
+        n_model = max(1, self.config.mesh_model_axis)
+        n_data = self.config.mesh_data_axis
+        if n_data == -1:
+            n_data = (len(devices) if devices else
+                      torch.cuda.device_count() if self.device.type == "cuda" else 1) // n_model
+        self.mesh = None
+        if n_data > 1 or n_model > 1:
+            self.mesh = make_mesh(n_data, n_model, devices=devices, device=self.device)
+            if self.encoder.mesh is None:
+                self.encoder.attach_mesh(self.mesh)
 
     def index(self, index_path: str | None = None, *, overwrite: bool = False) -> str:
         index_path = index_path or self.config.index_path
@@ -228,7 +241,7 @@ def _build(config: ColBERTConfig, encoder: ColBERTEncoder, passages, index_path:
             num_partitions=plan["num_partitions"], nbits=config.nbits,
             kmeans_niters=config.kmeans_niters,
             sample_weights=torch.from_numpy(train_weights).to(dev),
-            init_idx=init_idx,
+            init_idx=init_idx, mesh=encoder.mesh,
         )
     fmt.save_codec(index_path, centroids.cpu().numpy(), cutoffs.cpu().numpy(),
                    weights.cpu().numpy(), avg_residual)

@@ -15,6 +15,9 @@ through the Pallas kernel. With ``remat`` each layer runs under
 ``torch.utils.checkpoint`` (``bert_encode(remat=True)``'s ``jax.checkpoint``):
 the backward recomputes a layer's activations instead of keeping every
 layer's attention temporaries; the values do not change.
+:class:`TensorParallelBert` is the forward split over a mesh's model axis
+(Megatron; :mod:`colbert_torch.parallel.tp`), each shard a
+:class:`BertLayerShard` per layer.
 
 Parameter names follow the JAX pytree (``q``, ``k``, ``v``, ``attn_out``,
 ``attn_ln``, ``mlp_in``, ``mlp_out``, ``mlp_ln`` per layer); ``nn.Linear``
@@ -34,7 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from colbert_torch.ops.flash_attention import flash_attention_bsh
 
-__all__ = ["BertConfig", "BertModel"]
+__all__ = ["BertConfig", "BertModel", "BertLayerShard", "TensorParallelBert"]
 
 
 @dataclass(frozen=True)
@@ -86,6 +89,24 @@ def _activation(name: str, x: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unsupported activation {name!r}")
 
 
+def _attention(q, k, v, mask_bias, num_heads: int, use_flash: bool = False):
+    """Multi-head attention of ``(B, S, heads * hd)`` projections under a
+    ``(B, 1, 1, S)`` additive mask bias."""
+    B, S, H = q.shape
+    hd = H // num_heads
+    if use_flash:
+        return flash_attention_bsh(q, k, v, mask_bias[:, 0, 0, :], num_heads=num_heads)
+
+    def split(x):  # (B, S, H) -> (B, heads, S, hd)
+        return x.reshape(B, S, num_heads, hd).transpose(1, 2)
+
+    qh, kh, vh = split(q), split(k), split(v)
+    scores = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) / math.sqrt(hd)
+    probs = torch.softmax(scores + mask_bias, dim=-1).to(q.dtype)
+    out = torch.matmul(probs.float(), vh.float())
+    return out.transpose(1, 2).reshape(B, S, H).to(q.dtype)
+
+
 class BertLayer(nn.Module):
     def __init__(self, cfg: BertConfig) -> None:
         super().__init__()
@@ -101,26 +122,10 @@ class BertLayer(nn.Module):
         self.mlp_out = nn.Linear(I, H)
         self.mlp_ln = LayerNorm(H, cfg.layer_norm_eps)
 
-    def _attention(self, q, k, v, mask_bias, use_flash=False):
-        B, S, H = q.shape
-        hd = H // self.num_heads
-        if use_flash:
-            return flash_attention_bsh(q, k, v, mask_bias[:, 0, 0, :],
-                                       num_heads=self.num_heads)
-
-        def split(x):  # (B, S, H) -> (B, heads, S, hd)
-            return x.reshape(B, S, self.num_heads, hd).transpose(1, 2)
-
-        qh, kh, vh = split(q), split(k), split(v)
-        scores = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) / math.sqrt(hd)
-        probs = torch.softmax(scores + mask_bias, dim=-1).to(q.dtype)
-        out = torch.matmul(probs.float(), vh.float())
-        return out.transpose(1, 2).reshape(B, S, H).to(q.dtype)
-
     def forward(self, x: torch.Tensor, mask_bias: torch.Tensor,
                 use_flash: bool = False) -> torch.Tensor:
-        attn = self._attention(_dense(self.q, x), _dense(self.k, x),
-                               _dense(self.v, x), mask_bias, use_flash)
+        attn = _attention(_dense(self.q, x), _dense(self.k, x), _dense(self.v, x),
+                          mask_bias, self.num_heads, use_flash)
         x = self.attn_ln(x + _dense(self.attn_out, attn))
         h = _activation(self.act, _dense(self.mlp_in, x).float()).to(x.dtype)
         return self.mlp_ln(x + _dense(self.mlp_out, h))
@@ -139,9 +144,10 @@ class BertModel(nn.Module):
         self.emb_ln = LayerNorm(H, cfg.layer_norm_eps)
         self.layers = nn.ModuleList(BertLayer(cfg) for _ in range(cfg.num_hidden_layers))
 
-    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-                dtype: torch.dtype = torch.bfloat16, use_flash: bool = False,
-                remat: bool = False) -> torch.Tensor:
+    def embed(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+              dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+        """-> (embedding-layer output in ``dtype``, the (B, 1, 1, S) fp32
+        attention-mask bias)."""
         B, S = input_ids.shape
         pos = torch.arange(S, device=input_ids.device)
         x = (self.word(input_ids) + self.position(pos)[None]
@@ -149,7 +155,12 @@ class BertModel(nn.Module):
         x = self.emb_ln(x).to(dtype)
         neg = torch.finfo(torch.float32).min
         mask_bias = torch.where(attention_mask.bool(), 0.0, neg)
-        mask_bias = mask_bias.to(torch.float32)[:, None, None, :]  # (B,1,1,S)
+        return x, mask_bias.to(torch.float32)[:, None, None, :]
+
+    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                dtype: torch.dtype = torch.bfloat16, use_flash: bool = False,
+                remat: bool = False) -> torch.Tensor:
+        x, mask_bias = self.embed(input_ids, attention_mask, dtype)
         for layer in self.layers:
             if remat:
                 # no dropout anywhere, so no RNG state to replay
@@ -157,4 +168,89 @@ class BertModel(nn.Module):
                                preserve_rng_state=False)
             else:
                 x = layer(x, mask_bias, use_flash)
+        return x
+
+
+class BertLayerShard(nn.Module):
+    """Model shard ``m`` of ``n`` of a :class:`BertLayer`, split the
+    Megatron way: q, k, v and mlp_in keep output columns (whole heads, a
+    slice of the MLP), attn_out and mlp_out the matching input rows. Each
+    returns its partial sum of the row-parallel product; the biases of
+    attn_out and mlp_out and the layer norms stay with the replicated
+    layer (:class:`TensorParallelBert`)."""
+
+    def __init__(self, layer: BertLayer, m: int, n: int) -> None:
+        super().__init__()
+        H, I = layer.q.in_features, layer.mlp_in.out_features
+        hs = slice(m * H // n, (m + 1) * H // n)
+        ms = slice(m * I // n, (m + 1) * I // n)
+        self.num_heads = layer.num_heads // n
+        self.act = layer.act
+
+        def column(lin: nn.Linear, rows: slice) -> nn.Linear:
+            out = nn.Linear(lin.in_features, rows.stop - rows.start)
+            out.weight.data.copy_(lin.weight.data[rows])
+            out.bias.data.copy_(lin.bias.data[rows])
+            return out
+
+        self.q, self.k, self.v = (column(layer.q, hs), column(layer.k, hs),
+                                  column(layer.v, hs))
+        self.mlp_in = column(layer.mlp_in, ms)
+        self.attn_out_w = nn.Parameter(layer.attn_out.weight.data[:, hs].clone())
+        self.mlp_out_w = nn.Parameter(layer.mlp_out.weight.data[:, ms].clone())
+
+    def attention_partial(self, x, mask_bias, use_flash: bool = False) -> torch.Tensor:
+        attn = _attention(_dense(self.q, x), _dense(self.k, x), _dense(self.v, x),
+                          mask_bias, self.num_heads, use_flash)
+        return F.linear(attn, self.attn_out_w.to(x.dtype))
+
+    def mlp_partial(self, x: torch.Tensor) -> torch.Tensor:
+        h = _activation(self.act, _dense(self.mlp_in, x).float()).to(x.dtype)
+        return F.linear(h, self.mlp_out_w.to(x.dtype))
+
+
+class TensorParallelBert:
+    """A BERT forward split over a model group of ``devices``: shard ``m``
+    (:class:`BertLayerShard`) runs its heads and its MLP slice on
+    ``devices[m]``; the row-parallel partials are added in shard order on
+    ``devices[0]`` (in fp32, then the bias, then the activation dtype), the
+    one all-reduce per block of the Megatron scheme, before the residual
+    layer norm. The embeddings, layer norms and row-parallel biases are
+    replicated: they run once, on ``devices[0]``, whose result every shard
+    reads. Forward only (no ``remat``); not an ``nn.Module``, so moving a
+    model that holds it leaves the shards on their devices. ``bert`` must
+    lie on ``devices[0]``."""
+
+    def __init__(self, bert: BertModel, devices) -> None:
+        self.config = bert.config
+        self.base = bert
+        self.devices = list(devices)
+        n = len(self.devices)
+        self.shards = [[BertLayerShard(layer, m, n).to(dev) for layer in bert.layers]
+                       for m, dev in enumerate(self.devices)]
+
+    def _reduce(self, parts: list[torch.Tensor], bias: torch.Tensor) -> torch.Tensor:
+        home = self.devices[0]
+        total = parts[0].to(home, torch.float32)
+        for p in parts[1:]:
+            total = total + p.to(home, torch.float32)
+        return (total + bias.to(parts[0].dtype).float()).to(parts[0].dtype)
+
+    @torch.no_grad()
+    def __call__(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                 dtype: torch.dtype = torch.bfloat16, use_flash: bool = False,
+                 remat: bool = False) -> torch.Tensor:
+        if remat:
+            raise ValueError("the tensor-parallel forward is inference only (remat=False)")
+        x, mask_bias = self.base.embed(input_ids, attention_mask, dtype)
+        biases = [mask_bias.to(d) for d in self.devices]
+        for i, layer in enumerate(self.base.layers):
+            attn = self._reduce([sh[i].attention_partial(x.to(d), b, use_flash)
+                                 for sh, d, b in zip(self.shards, self.devices, biases)],
+                                layer.attn_out.bias)
+            x = layer.attn_ln(x + attn)
+            mlp = self._reduce([sh[i].mlp_partial(x.to(d))
+                                for sh, d in zip(self.shards, self.devices)],
+                               layer.mlp_out.bias)
+            x = layer.mlp_ln(x + mlp)
         return x

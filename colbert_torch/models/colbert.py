@@ -34,10 +34,16 @@ DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
 
 
 class ColBERT(nn.Module):
-    def __init__(self, cfg: BertConfig, dim: int = 128, *, linear_bias: bool = False):
+    """``bert`` replaces the BERT of the model (a
+    :class:`~colbert_torch.models.bert.TensorParallelBert`, which
+    :func:`colbert_torch.parallel.tp.shard_params` builds); by default it is
+    a fresh :class:`BertModel`."""
+
+    def __init__(self, cfg: BertConfig, dim: int = 128, *, linear_bias: bool = False,
+                 bert=None):
         super().__init__()
         self.bert_config = cfg
-        self.bert = BertModel(cfg)
+        self.bert = BertModel(cfg) if bert is None else bert
         self.linear = nn.Linear(cfg.hidden_size, dim, bias=linear_bias)
 
     @property

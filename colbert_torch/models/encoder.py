@@ -17,7 +17,12 @@ the build path:
     lengths >= ``config.flash_min_seqlen`` that are multiples of 128
     (length buckets are then forced to 128, ``strict_multiple``). On the
     CPU nothing routes there and buckets stay as configured, as in the JAX
-    package on its CPU backend.
+    package on its CPU backend,
+  - with a mesh attached (:meth:`ColBERTEncoder.attach_mesh`) every batch
+    pads to a multiple of the data axis and each data shard encodes its
+    rows on its own device (and, with a model axis above 1, through a
+    tensor-parallel model); doc outputs then leave the device as padded
+    blocks, not compacted rows, and the pad rows are dropped at drain.
 """
 
 from __future__ import annotations
@@ -145,10 +150,23 @@ class ColBERTEncoder:
         )
         if self._strict_buckets and self.length_bucket % 128 != 0:
             self.length_bucket = 128
+        self.mesh = None
+        self._replicas: list[ColBERT] = []
 
     def attach_mesh(self, mesh) -> None:
-        raise NotImplementedError(
-            "mesh-parallel encoding is not ported yet (ROADMAP A12)")
+        """Encode data-parallel over ``mesh``: batches split over its data
+        axis, each shard through its own model (:func:`colbert_torch.parallel.tp.shard_params`:
+        the model replicated on the shard's device, or with a model axis
+        above 1 split Megatron-style over the shard's model group). Outputs
+        gather on this encoder's device. Every data shard must lie in this
+        process."""
+        from colbert_torch.parallel import launch
+        from colbert_torch.parallel.tp import shard_params
+
+        if launch.owned_data_shards(mesh) != list(range(mesh.shape["data"])):
+            raise ValueError("a mesh encode needs every data shard in this process")
+        self._replicas = shard_params(self.model, mesh)
+        self.mesh = mesh
 
     @property
     def bert_config(self):
@@ -158,15 +176,44 @@ class ColBERTEncoder:
     def dim(self) -> int:
         return self.model.dim
 
-    def _put_batch(self, *arrays: np.ndarray) -> list[torch.Tensor]:
-        """Host arrays -> device tensors (int32 token ids widened to int64)."""
+    def _put_batch(self, *arrays: np.ndarray, device: torch.device | None = None
+                   ) -> list[torch.Tensor]:
+        """Host arrays -> tensors on ``device`` (default: the encoder's),
+        int32 token ids widened to int64."""
         out = []
         for a in arrays:
             t = torch.from_numpy(np.ascontiguousarray(a))
             if t.dtype == torch.int32:
                 t = t.long()
-            out.append(t.to(self.device, non_blocking=True))
+            out.append(t.to(device or self.device, non_blocking=True))
         return out
+
+    def _forward(self, method: str, ids: np.ndarray, mask: np.ndarray, keep: np.ndarray,
+                 *extra: torch.Tensor, **kw):
+        """``self.model.<method>(ids, mask, keep, *extra, **kw)`` on one host
+        batch. Under a mesh the rows pad to a multiple of the data axis
+        (pad rows have empty masks), each data shard runs its rows through
+        its own model on its device, and the outputs (a tensor or a tuple)
+        gather on the encoder's device in shard order, pad rows included:
+        callers keep the leading ``ids.shape[0]`` rows."""
+        if self.mesh is None:
+            return getattr(self.model, method)(*self._put_batch(ids, mask, keep), *extra, **kw)
+        ndev = self.mesh.shape["data"]
+        n = ids.shape[0]
+        pad = -(-n // ndev) * ndev - n
+        if pad:
+            ids, mask, keep = (np.pad(a, ((0, pad), (0, 0))) for a in (ids, mask, keep))
+        rows = ids.shape[0] // ndev
+        outs = []
+        for s, model in enumerate(self._replicas):
+            dev = self.mesh.data_device(s)
+            part = [a[s * rows:(s + 1) * rows] for a in (ids, mask, keep)]
+            outs.append(getattr(model, method)(*self._put_batch(*part, device=dev),
+                                               *(e.to(dev) for e in extra), **kw))
+        if isinstance(outs[0], tuple):
+            return tuple(torch.cat([o[i].to(self.device) for o in outs])
+                         for i in range(len(outs[0])))
+        return torch.cat([o.to(self.device) for o in outs])
 
     def tokenize_batch(self, texts) -> list[list[int]]:
         """Lists and byte-backed Collections both go to the native tokenizer."""
@@ -246,21 +293,26 @@ class ColBERTEncoder:
         if n == 0:
             return np.zeros((0, self.dim), np.float32), np.zeros((0,), np.int64)
 
+        compact = self.mesh is None  # a mesh ships padded blocks
+
         def dispatch(idx, ids, mask, keep):
+            kw = dict(dtype_name=cfg.activation_dtype, out_dtype_name=cfg.transfer_dtype,
+                      use_flash=self._flash_for(ids.shape[1]))
+            if not compact:
+                return (self._forward("encode_batch", ids, mask, keep, **kw),), len(idx)
             take, v = _take_rows(keep)
             ids_d, mask_d, keep_d, take_d = self._put_batch(ids, mask, keep, take)
-            emb = self.model.encode_compact_batch(
-                ids_d, mask_d, keep_d, take_d, dtype_name=cfg.activation_dtype,
-                out_dtype_name=cfg.transfer_dtype, use_flash=self._flash_for(ids.shape[1]),
-            )
-            return (emb,), v
+            return (self.model.encode_compact_batch(ids_d, mask_d, keep_d, take_d, **kw),), v
 
         drained, doclens = self._pipeline_batches(passages, dispatch)
         dest_offsets = np.concatenate([[0], np.cumsum(doclens[:-1])])
         flat = np.empty((int(doclens.sum()), self.dim), np.float32)
         for idx, keep, emb in drained:
-            counts = keep.sum(axis=1).astype(np.int64)
-            _scatter_compact_rows(flat, dest_offsets, idx, counts, emb)
+            if compact:
+                counts = keep.sum(axis=1).astype(np.int64)
+                _scatter_compact_rows(flat, dest_offsets, idx, counts, emb)
+            else:
+                _scatter_compact(flat, dest_offsets, idx, keep, emb)
         return flat, doclens
 
     @torch.no_grad()
@@ -287,7 +339,9 @@ class ColBERTEncoder:
                      np.zeros((0,), bool), np.zeros((0,), np.int64))
             return empty + ([],) if return_layout else empty
         batches = list(self._doc_batches(passages))
-        total = sum(ids.shape[0] * ids.shape[1] for _, ids, _, _ in batches)
+        ndev = 1 if self.mesh is None else self.mesh.shape["data"]
+        total = sum(-(-ids.shape[0] // ndev) * ndev * ids.shape[1]
+                    for _, ids, _, _ in batches)
         step = sample_bucket_step(total)
         padded = -(-total // step) * step
 
@@ -297,14 +351,12 @@ class ColBERTEncoder:
         buf = torch.zeros((padded, self.dim), dtype=torch.bfloat16, device=self.device)
         offset = 0
         for idx, ids, mask, keep in batches:
-            ids_d, mask_d, keep_d = self._put_batch(ids, mask, keep)
-            emb = self.model.encode_batch(
-                ids_d, mask_d, keep_d, dtype_name=cfg.activation_dtype,
-                use_flash=self._flash_for(ids.shape[1]),
-            )
-            B, L, dim = emb.shape
+            emb = self._forward("encode_batch", ids, mask, keep,
+                                dtype_name=cfg.activation_dtype,
+                                use_flash=self._flash_for(ids.shape[1]))
+            B, L, dim = emb.shape  # B counts a mesh's pad rows (valid=False)
             buf[offset:offset + B * L] = emb.reshape(B * L, dim)
-            valid[offset:offset + B * L] = keep.reshape(B * L)
+            valid[offset:offset + len(idx) * L] = keep.reshape(-1)
             doclens[idx] = keep.sum(axis=1)
             layout.append((idx, keep, offset, B, L))
             offset += B * L
@@ -331,8 +383,8 @@ class ColBERTEncoder:
         flat_codes = np.empty((total,), np.uint32)
         flat_res = np.empty((total, nbytes), np.uint8)
         for idx, keep, offset, B, L in layout:
-            blk_codes = codes_h[offset:offset + B * L].reshape(B, L)
-            blk_res = res_h[offset:offset + B * L].reshape(B, L, nbytes)
+            blk_codes = codes_h[offset:offset + B * L].reshape(B, L)[:len(idx)]
+            blk_res = res_h[offset:offset + B * L].reshape(B, L, nbytes)[:len(idx)]
             _scatter_compact(flat_codes, dest_offsets, idx, keep, blk_codes)
             _scatter_compact(flat_res, dest_offsets, idx, keep, blk_res)
         return flat_codes, flat_res
@@ -351,14 +403,18 @@ class ColBERTEncoder:
             return (np.zeros((0,), np.uint32), np.zeros((0, nbytes), np.uint8),
                     np.zeros((0,), np.int64))
 
+        compact = self.mesh is None  # a mesh ships padded blocks
+
         def dispatch(idx, ids, mask, keep):
+            kw = dict(dtype_name=cfg.activation_dtype, nbits=nbits,
+                      use_flash=self._flash_for(ids.shape[1]))
+            if not compact:
+                return self._forward("encode_compress_batch", ids, mask, keep, centroids,
+                                     bucket_cutoffs, **kw), len(idx)
             take, v = _take_rows(keep)
             ids_d, mask_d, keep_d, take_d = self._put_batch(ids, mask, keep, take)
             return self.model.encode_compress_compact_batch(
-                ids_d, mask_d, keep_d, centroids, bucket_cutoffs, take_d,
-                dtype_name=cfg.activation_dtype, nbits=nbits,
-                use_flash=self._flash_for(ids.shape[1]),
-            ), v
+                ids_d, mask_d, keep_d, centroids, bucket_cutoffs, take_d, **kw), v
 
         drained, doclens = self._pipeline_batches(passages, dispatch)
         dest_offsets = np.concatenate([[0], np.cumsum(doclens[:-1])])
@@ -366,9 +422,13 @@ class ColBERTEncoder:
         flat_codes = np.empty((total,), np.uint32)
         flat_res = np.empty((total, nbytes), np.uint8)
         for idx, keep, codes, res in drained:
-            counts = keep.sum(axis=1).astype(np.int64)
-            _scatter_compact_rows(flat_codes, dest_offsets, idx, counts, codes)
-            _scatter_compact_rows(flat_res, dest_offsets, idx, counts, res)
+            if compact:
+                counts = keep.sum(axis=1).astype(np.int64)
+                _scatter_compact_rows(flat_codes, dest_offsets, idx, counts, codes)
+                _scatter_compact_rows(flat_res, dest_offsets, idx, counts, res)
+            else:
+                _scatter_compact(flat_codes, dest_offsets, idx, keep, codes)
+                _scatter_compact(flat_res, dest_offsets, idx, keep, res)
         return flat_codes, flat_res, doclens
 
     # -- queries -------------------------------------------------------------
@@ -387,13 +447,13 @@ class ColBERTEncoder:
     def encode_query_tokens(self, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
         """Token ids -> ``(N, query_maxlen, dim)`` fp32 embeddings on the
         device. The query skiplist is pad-only and pads became [MASK], so
-        every position is kept (reference searching.jl:62)."""
-        ids_t = torch.as_tensor(ids, dtype=torch.int64).to(self.device, non_blocking=True)
-        mask_t = torch.as_tensor(mask).to(self.device, non_blocking=True)
-        keep = torch.ones_like(mask_t)
-        return self.model.forward_normalized(
-            ids_t, mask_t, keep, dtype_name=self.config.activation_dtype,
-        )
+        every position is kept (reference searching.jl:62). Under a mesh the
+        batch splits over the data shards and the pad rows are dropped."""
+        ids = np.asarray(ids, np.int64)
+        mask = np.asarray(mask)
+        Q = self._forward("forward_normalized", ids, mask, np.ones_like(mask),
+                          dtype_name=self.config.activation_dtype)
+        return Q[:ids.shape[0]]
 
     def encode_queries_device(self, queries: Sequence[str]) -> torch.Tensor:
         """-> ``(N, query_maxlen, dim)`` fp32 query embeddings on the device."""

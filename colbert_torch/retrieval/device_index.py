@@ -531,6 +531,12 @@ def _search(index: DeviceIndex, Q, *, k, nprobe, ncandidates, cell_cap,
         refine = stage1_refine and ncandidates < max_candidates
         sel_width = min(refine_width * ncandidates, max_candidates) if refine else ncandidates
         overflow = (n_unique - sel_width).clamp(min=0)
+        if stage1.shape[1] < sel_width:
+            # a shard of a sharded index probing all of its few cells
+            # (sharded_index) has fewer slots than the common budget
+            pad = sel_width - stage1.shape[1]
+            stage1 = torch.nn.functional.pad(stage1, (0, pad), value=NEG)
+            dense_pids = torch.nn.functional.pad(dense_pids, (0, pad), value=sentinel)
         w_vals, w_idx = torch.topk(stage1, sel_width, dim=1)
         sel = torch.where(w_vals > NEG / 2, dense_pids.gather(1, w_idx), sentinel)
     if refine:

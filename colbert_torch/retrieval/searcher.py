@@ -1,6 +1,6 @@
 """Searcher: load an index, answer queries (port of ``colbert_tpu.retrieval.searcher``).
 
-Two backends:
+Three backends:
 
 - ``"device"`` (default): the index is streamed from its chunk files onto
   the device (:class:`~colbert_torch.retrieval.device_index.DeviceIndex`)
@@ -9,10 +9,14 @@ Two backends:
 - ``"host"``: the reference-shaped staged pipeline of
   :mod:`~colbert_torch.retrieval.ranking`: codes and residuals stay on the
   host, candidates are gathered there per query, and the probe and the
-  scoring run on ``device``. Useful for debugging and parity.
-
-The JAX package's ``"sharded"`` backend waits for the multi-device layer
-and raises (see ROADMAP.md).
+  scoring run on ``device``. Useful for debugging and parity;
+- ``"sharded"``: the index split over the data axis of a mesh
+  (:class:`~colbert_torch.parallel.sharded_index.ShardedDeviceIndex`,
+  ``config.mesh_data_axis`` shards, -1 = every device), each shard on its
+  device searched by the same funnel, the per-shard top-k merged on the
+  host. ``device`` may list the mesh's devices: ``["cuda:0"] * 4`` puts four
+  shards on one card, the port's stand-in for the JAX package's virtual
+  devices. The query encode runs on the first device of the list.
 """
 
 from __future__ import annotations
@@ -28,10 +32,11 @@ import torch
 
 from colbert_torch.config import ColBERTConfig
 from colbert_torch.models.encoder import ColBERTEncoder
+from colbert_torch.parallel.mesh import make_mesh, resolve_devices
+from colbert_torch.parallel.sharded_index import ShardedDeviceIndex
 from colbert_torch.retrieval import ranking
 from colbert_torch.retrieval.device_index import DeviceIndex
 from colbert_torch.storage import format as fmt
-from colbert_torch.utils.build import resolve_device
 from colbert_torch.utils.tracing import Tracer, device_phase
 
 __all__ = ["Searcher", "search"]
@@ -45,7 +50,7 @@ class Searcher:
     encoder: ColBERTEncoder | None = None
     config: ColBERTConfig = None  # loaded from the index unless given
     backend: str = "device"
-    device: str | torch.device = "cuda"
+    device: str | torch.device | list = "cuda"
     # optional stage timing: with a Tracer every stage synchronizes the
     # device at its end and adds its wall time under its name
     tracer: Tracer | None = None
@@ -58,12 +63,13 @@ class Searcher:
     QUERY_BATCH_BUCKETS = (1, 4, 8, 16, 32, 64, 128)
 
     def __post_init__(self) -> None:
-        self.device = resolve_device(self.device)
-        if self.backend not in ("device", "host"):
-            raise NotImplementedError(
-                f"backend={self.backend!r} is not ported yet; 'device' and 'host' "
-                "are (see ROADMAP.md, queue A)"
-            )
+        self._device_arg = self.device
+        self.device, self._devices = resolve_devices(self.device)
+        if self.backend not in ("device", "host", "sharded"):
+            raise ValueError(
+                f"backend must be 'device', 'host' or 'sharded', not {self.backend!r}")
+        if self._devices is not None and len(self._devices) > 1 and self.backend != "sharded":
+            raise ValueError(f"a device list is for backend='sharded', not {self.backend!r}")
         if self.config is None:
             self.config = ColBERTConfig.load(os.path.join(self.index_path, "config.json"))
         missing = fmt.check_all_files_saved(self.index_path)
@@ -105,6 +111,15 @@ class Searcher:
             self.residuals = fmt.load_all_residuals(self.index_path)
             self.emb2pid = ranking.build_emb2pid(self.doclens)
             self.emb_offsets = np.concatenate([[0], np.cumsum(dl64[:-1])]).astype(np.int64)
+        elif self.backend == "sharded":
+            self.mesh = make_mesh(self.config.mesh_data_axis, self.config.mesh_model_axis,
+                                  devices=self._devices, device=self.device)
+            self._codec = codec
+            self._build_sharded()
+            self.centroids = torch.as_tensor(codec["centroids"]).to(self.device)
+            self.bucket_weights = torch.as_tensor(codec["bucket_weights"]).to(self.device)
+            self.codes = self.residuals = None  # device-resident only
+            self.emb2pid = self.emb_offsets = None
         else:
             self.device_index = DeviceIndex.build(
                 centroids=codec["centroids"],
@@ -124,6 +139,22 @@ class Searcher:
             self.emb2pid = self.emb_offsets = None
             self._init_capacities()
 
+    def _build_sharded(self) -> None:
+        """(Re)build the sharded index from the chunk files (each process
+        reads only its shards' rows) and size the capacities."""
+        self.sharded_index = ShardedDeviceIndex.build(
+            self.mesh, centroids=self._codec["centroids"], stream_from=self.index_path,
+            doclens=np.asarray(self.doclens, np.int64),
+            bucket_weights=self._codec["bucket_weights"], nbits=self.config.nbits,
+            balance_cap=self._balance_cap(self.config.ivf_balance_cap),
+            deleted_pids=self.deleted_pids)
+        self._init_capacities()
+
+    @property
+    def _index(self):
+        """The index the device or sharded backend searches."""
+        return self.sharded_index if self.backend == "sharded" else self.device_index
+
     @staticmethod
     def _balance_cap(cap: int | None) -> int | None:
         """``config.ivf_balance_cap`` semantics: None = 1024, <= 0 = no split."""
@@ -133,8 +164,11 @@ class Searcher:
         """Capacities of the search: exact up to a ceiling unless the config
         sets them; any truncation is warned about and overflow counted."""
         cfg = self.config
-        probe_lengths = self.device_index.ivf_lengths
-        max_ivf = int(probe_lengths.max()) if probe_lengths.numel() else 1
+        if self.backend == "sharded":
+            max_ivf = self.sharded_index.max_cell_length
+        else:
+            probe_lengths = self.device_index.ivf_lengths
+            max_ivf = int(probe_lengths.max()) if probe_lengths.numel() else 1
         if cfg.search_cell_cap is not None:
             self.cell_cap = int(cfg.search_cell_cap)
         else:
@@ -153,16 +187,20 @@ class Searcher:
     def reload(self) -> "Searcher":
         """Fresh Searcher over the current on-disk artifacts (shares the encoder)."""
         return Searcher(self.index_path, encoder=self.encoder, backend=self.backend,
-                        device=self.device, tracer=self.tracer)
+                        device=self._device_arg, tracer=self.tracer)
 
     def set_balance_cap(self, cap: int | None) -> None:
         """Re-balance the probe-side IVF for a new ``ivf_balance_cap``
-        without reloading the index, and re-size the auto capacities
-        (device backend only)."""
-        if self.backend != "device":
+        and re-size the auto capacities: in place on the device backend, by
+        rebuilding every shard on the sharded one."""
+        if self.backend == "host":
             raise NotImplementedError(
-                "set_balance_cap: device backend only (rebuild the Searcher for host)")
+                "set_balance_cap: device and sharded backends only (rebuild the "
+                "Searcher for host)")
         self.config.ivf_balance_cap = cap
+        if self.backend == "sharded":
+            self._build_sharded()
+            return
         self.device_index.rebalance(self.ivf_lengths, self._balance_cap(cap))
         self._init_capacities()
 
@@ -179,7 +217,7 @@ class Searcher:
         ncand, threshold = self._stage_params(k)
         nprobe = cfg.nprobe
         if cfg.probe_dup_compensation:
-            nprobe = self.device_index.compensated_nprobe(
+            nprobe = self._index.compensated_nprobe(
                 nprobe, saturate=cfg.probe_comp_saturation)
         return dict(
             k=k, nprobe=nprobe, ncandidates=ncand,
@@ -203,9 +241,10 @@ class Searcher:
     def launch_search(self, queries: Sequence[str], k: int = 10) -> list:
         """Tokenize and launch the search of ``queries`` -> a handle for
         :meth:`finish_search`. Batches pad up to a query-batch bucket;
-        wider ones split into bucket-sized launches. Device backend only."""
-        if self.backend != "device":
-            raise NotImplementedError("launch_search: device backend only")
+        wider ones split into bucket-sized launches. Device and sharded
+        backends."""
+        if self.backend == "host":
+            raise NotImplementedError("launch_search: device and sharded backends only")
         kw = self._search_kwargs(k)
         cap = self.QUERY_BATCH_BUCKETS[-1]
         parts = []
@@ -216,6 +255,12 @@ class Searcher:
             piece = piece + [""] * (padded - B)
             with self._phase("tokenize"):
                 ids, mask = self.encoder.tensorize_queries(piece)
+            if self.backend == "sharded":
+                with self._phase("encode"):
+                    Q = self.encoder.encode_query_tokens(ids, mask)
+                parts.append((B, self.sharded_index.search_Q_batch_async(
+                    Q, tracer=self.tracer, **kw)))
+                continue
             parts.append((B, self.device_index.search_tokens_batch_async(
                 self.encoder, ids, mask, tracer=self.tracer, **kw)))
         return parts
@@ -225,7 +270,7 @@ class Searcher:
         if not parts:
             return np.empty((0, k), np.int64), np.empty((0, k), np.float32)
         with self._phase("finish"):
-            outs = [(B, self.device_index.finalize(p)) for B, p in parts]
+            outs = [(B, self._index.finalize(p)) for B, p in parts]
         pids = np.concatenate([pi[:B] for B, (pi, _) in outs])
         scores = np.concatenate([sc[:B] for B, (_, sc) in outs])
         if pids.shape[1] < k:  # tiny index: fewer than k hits exist
@@ -241,7 +286,7 @@ class Searcher:
         of the one being read back. The host backend runs the batches one
         after another through :meth:`search_batch` (same results, no
         overlap)."""
-        if self.backend != "device":
+        if self.backend == "host":
             for qb in query_batches:
                 yield self.search_batch(list(qb), k)
             return

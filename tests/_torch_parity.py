@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import jax
 import numpy as np
+import pytest
+import torch
 
 
 def to_numpy(tree):
@@ -63,3 +65,15 @@ def assert_topk_agree(p1, s1, p2, s2, tol: float) -> None:
         for pid in a.keys() ^ b.keys():
             s = a.get(pid, b.get(pid))
             assert s - cut <= tol, f"row {r}: pid {pid} ({s}) not a tie at the cut {cut}"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU work in one thread (import this fixture into a test
+    module): beside the suite's other xdist workers, torch's thread pool
+    waits at every op's barrier for descheduled threads, and one thread
+    also fixes the order of every CPU reduction."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

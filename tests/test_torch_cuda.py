@@ -12,7 +12,10 @@ to near-ties), the exact oracle (within 1e-4) and a ``BatchingSearcher``
 whose loop thread launches and finishes the searches (the same pids and
 scores as direct ``search_batch`` of the same batches); and the
 ``searching`` and ``evaluate`` entry points at their default device, every
-stage-2 launch through the ``mma`` kernel. Every test skips
+stage-2 launch through the ``mma`` kernel; a 4-shard sharded index on one
+card (one ``mma`` stage-2 launch per shard, equal to the CPU's up to ties)
+and a tensor-parallel encode over two model shards (flash per shard, cosine
+0.999 in bf16, 1e-4 in fp32). Every test skips
 without a GPU. This file imports no JAX; on a machine without JAX run it as
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -348,3 +351,70 @@ def test_search_and_evaluate_examples_run_the_kernel(cuda_device, tmp_path):
     assert report["num_queries"] == 8 and report["qps"] > 0
     launches = fm.stage2_maxsim.launches - before
     assert launches == 2 and fm.stage2_maxsim.variant_launches["mma"] - mma == launches
+
+
+@pytest.mark.cuda
+def test_sharded_index_on_the_card_runs_the_kernel_per_shard(cuda_device, tmp_path):
+    """Four data shards on one card (a repeated device list): every shard's
+    stage 2 is one ``mma`` launch, and the merged result equals the same
+    sharded search on the CPU up to ties, scores within 1e-4."""
+    from colbert_torch.parallel.mesh import make_mesh
+    from colbert_torch.parallel.sharded_index import ShardedDeviceIndex
+    from colbert_torch.storage import format as fmt
+    from colbert_torch.utils.testing import synthesize_index
+
+    path = str(tmp_path / "idx")
+    synthesize_index(path, 600, dim=128, nbits=2, avg_doclen=40, seed=2)
+    codec = fmt.load_codec(path)
+    kw = dict(centroids=codec["centroids"], stream_from=path,
+              doclens=np.asarray(fmt.load_all_doclens(path), np.int64),
+              bucket_weights=codec["bucket_weights"], nbits=2, balance_cap=64)
+    gpu = ShardedDeviceIndex.build(make_mesh(4, 1, devices=["cuda:0"] * 4), **kw)
+    cpu = ShardedDeviceIndex.build(make_mesh(4, 1, device="cpu"), **kw)
+    Q = torch.nn.functional.normalize(
+        torch.randn(8, 32, 128, generator=torch.Generator().manual_seed(1)), dim=-1)
+    search = dict(k=10, nprobe=4, ncandidates=256, cell_cap=64, max_candidates=1024)
+    before = dict(fm.stage2_maxsim.variant_launches)
+    pg, sg = gpu.search_Q_batch(Q.to(cuda_device), **search)
+    assert fm.stage2_maxsim.variant_launches["mma"] == before["mma"] + 4
+    assert fm.stage2_maxsim.variant_launches["simt"] == before["simt"]
+    pc, sc = cpu.search_Q_batch(Q, **search)
+    np.testing.assert_allclose(sg, sc, atol=TOL, rtol=0)
+    for r in range(8):
+        shared = set(pg[r]) & set(pc[r])
+        assert len(shared) >= 8, (pg[r], pc[r])
+
+
+@pytest.mark.cuda
+def test_tensor_parallel_encode_on_the_card(cuda_device):
+    """A 1x2 tensor-parallel bert encode on one card (two model shards of
+    6 heads at S=512) runs the flash ``mma`` kernel once per shard and layer
+    and keeps every kept token within cosine 0.999 of the one-device bf16
+    encode; in fp32 with TF32 off it is within 1e-4."""
+    from colbert_torch.config import ColBERTConfig
+    from colbert_torch.models.bert import BertConfig
+    from colbert_torch.models.encoder import ColBERTEncoder
+    from colbert_torch.parallel.mesh import make_mesh
+    from colbert_torch.utils.testing import make_encoder
+
+    cfg = BertConfig(vocab_size=512, num_hidden_layers=2)
+    ccfg = ColBERTConfig(dim=128, doc_maxlen=512, use_pallas=True, flash_min_seqlen=512)
+    one = make_encoder(dim=128, config=ccfg, bert_config=cfg, device=cuda_device)
+    tp = ColBERTEncoder(one.model, one.tokenizer, ccfg, device=cuda_device)
+    tp.attach_mesh(make_mesh(1, 2, devices=["cuda:0", "cuda:0"]))
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, 512, (4, 512))
+    mask = np.ones((4, 512), bool)
+    mask[1, 300:] = False
+    keep = mask.copy()
+    with torch.no_grad():
+        before = dict(fa.flash_attention.variant_launches)
+        a = tp._forward("encode_batch", ids, mask, keep, dtype_name="bfloat16", use_flash=True)
+        assert fa.flash_attention.variant_launches["mma"] == before["mma"] + 2 * 2
+        b = one._forward("encode_batch", ids, mask, keep, dtype_name="bfloat16",
+                         use_flash=True)
+        k = torch.from_numpy(keep).to(cuda_device)
+        assert float((a * b).sum(-1)[k].min()) >= 0.999
+        a32 = tp._forward("encode_batch", ids, mask, keep, dtype_name="float32")
+        b32 = one._forward("encode_batch", ids, mask, keep, dtype_name="float32")
+        assert float((a32 - b32).abs()[k].max()) <= 1e-4

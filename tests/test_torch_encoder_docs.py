@@ -123,5 +123,11 @@ def test_flash_gate_stays_off_on_the_cpu(encoders):
     _, tenc, _ = encoders
     assert not tenc._flash_capable and not tenc._flash_for(512)
     assert tenc.length_bucket == tenc.config.length_bucket
-    with pytest.raises(NotImplementedError, match="A12"):
-        tenc.attach_mesh(object())
+    # and under a CPU mesh (the data-parallel encode) it stays off too
+    from colbert_torch.models.encoder import ColBERTEncoder
+    from colbert_torch.parallel.mesh import make_mesh
+
+    meshed = ColBERTEncoder(tenc.model, tenc.tokenizer, tenc.config, device="cpu")
+    meshed.attach_mesh(make_mesh(2, 1, device="cpu"))
+    assert meshed.mesh.shape == {"data": 2, "model": 1}
+    assert not meshed._flash_capable and not meshed._flash_for(512)

@@ -180,7 +180,16 @@ def test_device_and_mesh_rules(short):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             Indexer(short["tcfg"], encoder=short["tenc"], collection=short["passages"])
+    # a data axis above one device builds a mesh and attaches it to the
+    # encoder (the CPU repeated); more devices than the list holds raise
     cfg = ColBERTConfig.from_dict(dict(short["tcfg"].to_dict(), mesh_data_axis=2))
-    with pytest.raises(NotImplementedError, match="A12"):
-        Indexer(cfg, encoder=short["tenc"], collection=short["passages"], device="cpu")
+    enc = port_encoder(short["jenc"])
+    idx = Indexer(cfg, encoder=enc, collection=short["passages"], device="cpu")
+    assert idx.mesh.shape == {"data": 2, "model": 1} and enc.mesh is idx.mesh
+    cfg4 = ColBERTConfig.from_dict(dict(short["tcfg"].to_dict(), mesh_data_axis=4))
+    with pytest.raises(ValueError, match="needs 4 devices"):
+        Indexer(cfg4, encoder=port_encoder(short["jenc"]), collection=short["passages"],
+                device=["cpu", "cpu"])
+    assert Indexer(short["tcfg"], encoder=short["tenc"], collection=short["passages"],
+                   device="cpu").mesh is None  # -1: the one device this Indexer drives
     assert tbuilder.load_collection(["a", "b"]) == ["a", "b"]

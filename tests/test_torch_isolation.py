@@ -29,7 +29,10 @@ def test_package_imports_no_jax():
                  "training.trainer", "examples.searching", "examples.indexing",
                  "examples.make_eval_fixture", "examples.evaluate", "examples.tune",
                  "examples.update", "examples.serve", "examples.train",
-                 "evaluation.quality", "graft_entry", "utils.testing"):
+                 "evaluation.quality", "graft_entry", "utils.testing",
+                 "parallel.mesh", "parallel.launch", "parallel.kmeans_dist",
+                 "parallel.search_dist", "parallel.sharded_index", "parallel.tp",
+                 "parallel.index_step", "ops.quantile"):
         assert f"colbert_torch.{name}" in names
     code = (
         "import importlib, sys\n"

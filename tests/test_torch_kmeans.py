@@ -94,6 +94,19 @@ def test_train_codec_matches_reference(rng):
     np.testing.assert_allclose(tw.numpy(), np.asarray(jw), atol=TOL, rtol=0)
     assert abs(tavg - javg) <= TOL
     assert sample_bucket_step(4100) == 4096
-    with pytest.raises(NotImplementedError, match="A12"):
-        train_codec(torch.from_numpy(data), torch.from_numpy(heldout), num_partitions=4,
-                    nbits=2, mesh=object())
+    # with a mesh both packages take the sharded trainer (sharded Lloyd,
+    # histogram quantiles): 4 virtual JAX devices, the CPU repeated 4 times
+    from colbert_tpu.parallel.mesh import make_mesh as j_make_mesh
+    from colbert_torch.parallel.mesh import make_mesh
+
+    jc, jcut, jw, javg = jtrain(jnp.asarray(data), jnp.asarray(heldout), num_partitions=32,
+                                nbits=2, kmeans_niters=8, sample_weights=weights,
+                                init_idx=jnp.asarray(init_idx), mesh=j_make_mesh(4, 1))
+    tc, tcut, tw, tavg = train_codec(torch.from_numpy(data), torch.from_numpy(heldout),
+                                     num_partitions=32, nbits=2, kmeans_niters=8,
+                                     sample_weights=torch.from_numpy(weights),
+                                     init_idx=init_idx, mesh=make_mesh(4, 1, device="cpu"))
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=TOL, rtol=0)
+    np.testing.assert_allclose(tcut.numpy(), np.asarray(jcut), atol=TOL, rtol=0)
+    np.testing.assert_allclose(tw.numpy(), np.asarray(jw), atol=TOL, rtol=0)
+    assert abs(tavg - javg) <= TOL

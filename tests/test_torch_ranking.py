@@ -166,9 +166,9 @@ def test_host_backend_attributes_and_rules(host_pair):
         np.testing.assert_array_equal(s.bucket_weights.numpy(), np.asarray(js.bucket_weights))
         assert s.avg_residual == js.avg_residual and s.plan == js.plan
     assert dev.codes is None and dev.centroids is dev.device_index.centroids
-    with pytest.raises(NotImplementedError, match="device backend"):
+    with pytest.raises(NotImplementedError, match="device and sharded backends"):
         ts.set_balance_cap(4)
-    with pytest.raises(NotImplementedError, match="device backend"):
+    with pytest.raises(NotImplementedError, match="device and sharded backends"):
         ts.launch_search([passages[0]], 3)
     batches = [[passages[1], passages[2]], [passages[3]]]
     for qb, (p, s) in zip(batches, ts.search_stream(batches, k=3)):

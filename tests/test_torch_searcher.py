@@ -111,8 +111,10 @@ def test_set_balance_cap_and_reload(built, searchers):
 
 def test_device_and_backend_rules(built):
     _, _, tenc, _, path = built
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Searcher(path, encoder=tenc, device="cpu", backend="sharded")
+    with pytest.raises(ValueError, match="backend"):
+        Searcher(path, encoder=tenc, device="cpu", backend="pod")
+    sharded = Searcher(path, encoder=tenc, device="cpu", backend="sharded")
+    assert sharded.mesh.shape == {"data": 1, "model": 1}  # -1: the one device
     assert Searcher(path, encoder=tenc, device="cpu", backend="host").backend == "host"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
