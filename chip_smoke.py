@@ -141,9 +141,23 @@
    Searcher); one 32-passage S=512 batch encoded DP 2x1 and TP 1x2 (6 heads
    per shard through flash) against the one-device encode (bf16 cosine >=
    0.999, fp32 within 1e-4); ``kmeans_sharded`` on 4 shards against
-   ``kmeans`` on 256 separated clusters (1e-4); ``dryrun_multichip(4)``. Prints the seconds of each
-   part beside the card.
-11. Prints the card's name and power limit, a ``kernels`` JSON line (each
+   ``kmeans`` on 256 separated clusters (1e-4); ``dryrun_multichip(4)``
+   (with its dp x tp training step against one device). Prints the seconds
+   of each part beside the card.
+11. ``[train-mesh]``: ``ColBERTTrainer`` through ``attach_mesh`` over DP
+   2x1, TP 1x2 and dp x tp 2x2 meshes of the card repeated. One AdamW step
+   of [train]'s model cut to 2 layers, fp32, 8 triples, per mesh against
+   the one-device step (loss 1e-5 relative, every gradient entry within
+   1e-4 x its max |g| + 1e-7, parameters within 1e-2 x lr), and the dp x
+   tp step inside a one-process NCCL group against the step without one
+   (1e-6). Then [train]'s bert-base recipe, bf16, 10 steps of 32 triples
+   on one device and over each mesh from the same weights: the median ms
+   per step after 3 warm-up steps (the shards run in turn on one card:
+   the code path's time, not a mesh's gain), the first step's loss within
+   2e-2 relative of one device's; after the dp x tp training no replica or
+   shard is stale and a 32-row bf16 mesh encode is within cosine 0.999 of
+   the trained model's; neither kernel launches.
+12. Prints the card's name and power limit, a ``kernels`` JSON line (each
    kernel's launches on the main path and by path), and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -208,6 +222,8 @@ MD_BUILD_PASSAGES = 4_096   # the mesh build's corpus (the [build] corpus' first
 MD_ENCODE_ROWS = 32         # rows of the DP/TP encode batch
 MD_KMEANS_ROWS = 16_384
 MD_KMEANS_K = 256
+TRAIN_MESH_STEPS = 10       # [train-mesh]: bf16 steps per mesh, the first 3 warm-up
+TRAIN_MESHES = {"dp": (2, 1), "tp": (1, 2), "dp x tp": (2, 2)}
 QUALITY_PASSAGES = 16_384   # [quality]: the drill's corpus and training steps
 QUALITY_STEPS = 100
 
@@ -1887,6 +1903,188 @@ def train_phase(device, *, bert_cfg, n_passages: int = TRAIN_PASSAGES,
 
 
 # ---------------------------------------------------------------------------
+# [train-mesh]: ColBERTTrainer over a device mesh on the one card
+# ---------------------------------------------------------------------------
+
+
+def mesh_trainer(sd, bert_cfg, tokenizer, cfg, device, shape, **kw):
+    """A ``ColBERTTrainer`` of a fresh model holding ``sd``, over a
+    ``shape`` mesh of ``device`` repeated (None: no mesh)."""
+    from colbert_torch.models.colbert import ColBERT
+    from colbert_torch.models.encoder import ColBERTEncoder
+    from colbert_torch.parallel.mesh import make_mesh
+    from colbert_torch.training import ColBERTTrainer
+
+    model = ColBERT(bert_cfg, 128)
+    model.load_state_dict(sd, strict=True)
+    enc = ColBERTEncoder(model, tokenizer, cfg, device=device)
+    if shape is not None:
+        enc.attach_mesh(make_mesh(*shape, devices=mesh_devices(device, shape[0] * shape[1])))
+    return ColBERTTrainer(enc, **kw)
+
+
+def mesh_step_checks(model, tokenizer, triples, device) -> dict:
+    """One AdamW step (lr TRAIN_LR, clipping) of the first CHECK_LAYERS
+    layers of ``model`` at full width, fp32 activations, TF32 off, over
+    each mesh of TRAIN_MESHES against the same step on one device: loss
+    1e-5 relative, every gradient entry within 1e-4 x its tensor's max |g|
+    + 1e-7, every parameter after the update within 1e-2 x lr (entries
+    whose one-device gradient is nonzero and below 1e-6, where Adam's first
+    update lr * g / (|g| + 1e-8) follows the gradient's rounding, are
+    counted apart as in :func:`step_card_vs_cpu`, and held to lr); then
+    the dp x tp step inside a one-process NCCL group (gloo on the CPU),
+    whose collectives run at world size 1, against the step without a
+    group: within 1e-6."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from colbert_torch.parallel import launch
+
+    cfg = dataclasses.replace(model.bert_config, num_hidden_layers=CHECK_LAYERS)
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()
+          if not k.startswith("bert.layers.") or int(k.split(".")[2]) < CHECK_LAYERS}
+
+    def step(shape):
+        trainer = mesh_trainer(sd, cfg, tokenizer, train_config(activation_dtype="float32"),
+                               device, shape, learning_rate=TRAIN_LR)
+        loss = trainer.train_step(triples)["loss"]
+        params = list(trainer.encoder.model.parameters())
+        return loss, [p.grad.clone() for p in params], [p.detach().clone() for p in params]
+
+    loss1, g1, p1 = step(None)
+    out, results = {}, {}
+    for name, shape in TRAIN_MESHES.items():
+        results[name] = loss, g, p = step(shape)
+        loss_rel = abs(loss - loss1) / abs(loss1)
+        grad_ratio = max(float((a - b).abs().max()) / (1e-4 * float(b.abs().max()) + 1e-7)
+                         for a, b in zip(g, g1))
+        param_err, apart_err, apart = 0.0, 0.0, 0
+        for a, b, gb in zip(p, p1, g1):
+            tiny = (gb.abs() < 1e-6) & (gb != 0)
+            diff = (a - b).abs()
+            apart += int(tiny.sum())
+            param_err = max(param_err, float(diff[~tiny].max()) if (~tiny).any() else 0.0)
+            apart_err = max(apart_err, float(diff[tiny].max()) if tiny.any() else 0.0)
+        print(f"[train-mesh] {name} {shape} vs one device, {CHECK_LAYERS} layers at full width, "
+              f"fp32, {len(triples)} triples: loss {loss:.8f} vs {loss1:.8f} (rel "
+              f"{loss_rel:.3e}, limit 1e-5); max grad err / (1e-4 max|g| + 1e-7) "
+              f"{grad_ratio:.3e} (limit 1); max param err {param_err:.3e} (limit "
+              f"{1e-2 * TRAIN_LR:.1e}); {apart} entries with 0 < |g| < 1e-6: max err "
+              f"{apart_err:.3e} (limit {TRAIN_LR:.1e})")
+        check(loss_rel <= 1e-5, f"train-mesh {name}: loss {loss_rel}")
+        check(grad_ratio <= 1.0, f"train-mesh {name}: gradient {grad_ratio}")
+        check(param_err <= 1e-2 * TRAIN_LR and apart_err <= TRAIN_LR,
+              f"train-mesh {name}: parameters {param_err}, {apart_err}")
+        out[f"mesh_{name}_loss_rel"] = loss_rel
+        out[f"mesh_{name}_grad_ratio"] = grad_ratio
+        out[f"mesh_{name}_param_err"] = param_err
+
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    launch.initialize(f"127.0.0.1:{free_port()}", 1, 0, backend=backend)
+    try:
+        check(dist.get_backend() == backend and launch.process_count() == 1,
+              "train-mesh: process group")
+        grouped = step(TRAIN_MESHES["dp x tp"])
+    finally:
+        dist.destroy_process_group()
+    alone = results["dp x tp"]
+    err = max([abs(grouped[0] - alone[0])]
+              + [float((a - b).abs().max()) for x, y in zip(grouped[1:], alone[1:])
+                 for a, b in zip(x, y)])
+    bit_equal = err == 0.0
+    print(f"[train-mesh] dp x tp step in a one-process {backend} group vs without one: loss, "
+          f"gradients and parameters max |diff| {err:.3e} (limit 1e-6); bit-equal {bit_equal}")
+    check(err <= 1e-6, f"train-mesh: the {backend} step differs by {err}")
+    out.update(mesh_group_err=err, mesh_group_bit_equal=bit_equal)
+    return out
+
+
+def train_mesh_phase(device, *, bert_cfg, n_passages: int = TRAIN_PASSAGES,
+                     steps: int = TRAIN_MESH_STEPS, batch: int = TRAIN_BATCH) -> dict:
+    """[train-mesh]: ``ColBERTTrainer`` through ``attach_mesh`` on the one
+    card, its mesh cells a repeated device list: the fp32 checks of
+    :func:`mesh_step_checks`; then a bert-base model of [train]'s recipe
+    (seed 17, the corpus vocabulary, ``make_triples``, 32 triples per step,
+    bf16, AdamW with its warmup and schedule, clipping, remat) trained
+    ``steps`` steps on one device and over each mesh of TRAIN_MESHES from
+    the same weights: the median ms per step after 3 warm-up steps, a
+    finite loss, the first step's loss within 2e-2 relative of the
+    one-device step's; after the dp x tp training every replica and shard
+    holds the trained weights and a 32-row bf16 mesh encode is within
+    cosine 0.999 of the trained model's one-device encode. Neither kernel
+    launches (training never routes to flash and searches nothing)."""
+    import statistics
+
+    import torch
+
+    from colbert_torch.models.colbert import init_colbert
+    from colbert_torch.ops import flash_attention as fa
+    from colbert_torch.ops import fused_maxsim as fm
+    from colbert_torch.parallel.tp import param_links
+    from colbert_torch.utils.testing import (bench_vocab_tokenizer, make_triples,
+                                             synthetic_passages)
+
+    t_phase = time.perf_counter()
+    reset_counts()
+    tokenizer = bench_vocab_tokenizer()
+    model = init_colbert(bert_cfg, 128, generator=torch.Generator().manual_seed(17))
+    sd = model.state_dict()
+    passages = synthetic_passages(n_passages)
+    triples = make_triples(passages, steps * batch, seed=0)
+    out = mesh_step_checks(model, tokenizer, triples[:CHECK_TRIPLES], device)
+
+    cfg = train_config()
+    first, ms = {}, {}
+    for name, shape in {"one device": None, **TRAIN_MESHES}.items():
+        trainer = mesh_trainer(sd, bert_cfg, tokenizer, cfg, device, shape,
+                               learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                               total_steps=TRAIN_STEPS, in_batch_negatives=True)
+        times = []
+        for step in range(steps):
+            t0 = time.perf_counter()
+            m = trainer.train_step(triples[step * batch:(step + 1) * batch])
+            times.append(time.perf_counter() - t0)  # the metrics' read-back waits for the step
+            check(np.isfinite(m["loss"]), f"train-mesh {name}: loss {m['loss']}")
+        first[name] = trainer.history[0]["loss"]
+        ms[name] = statistics.median(times[3:]) * 1e3
+        rel = abs(first[name] - first["one device"]) / abs(first["one device"])
+        print(f"[train-mesh] {name} {shape}: {steps} steps x {batch} triples, bf16, full depth: "
+              f"median {ms[name]:.3f} ms per step after 3 warm-up steps (one device "
+              f"{ms['one device']:.3f} ms); first-step loss {first[name]:.6f} (rel to one "
+              f"device {rel:.3e}, limit 2e-2); last loss {m['loss']:.4f}; on {card_line()}")
+        check(rel <= 2e-2, f"train-mesh {name}: first-step loss {rel}")
+    enc = trainer.encoder
+    stale = sum(not torch.equal(rep, full if index is None else full[index])
+                for replica in set(enc._replicas.values())
+                for full, rep, index in param_links(enc.model, replica))
+    host = trainer._tensorize(triples[:32])
+    ids, mask, keep = host["pos_ids"], host["pos_mask"], host["pos_keep"]
+    with torch.no_grad():
+        meshed = enc._forward("encode_batch", ids, mask, keep, dtype_name="bfloat16")[:32]
+        one = enc.model.encode_batch(*enc._put_batch(ids, mask, keep), dtype_name="bfloat16")
+    kept = torch.from_numpy(keep).to(one.device)
+    cos = float((meshed * one).sum(-1)[kept].min())
+    launches = {"stage2_maxsim": fm.stage2_maxsim.launches,
+                "flash_attention": fa.flash_attention.launches}
+    seconds = time.perf_counter() - t_phase
+    print(f"[train-mesh] after the dp x tp training: stale replica or shard tensors {stale}; "
+          f"32-row bf16 mesh encode vs the trained model's one-device encode: min cosine "
+          f"{cos:.6f} (limit 0.999); kernel launches {launches}; phase seconds {seconds:.1f}. "
+          f"One card runs the shards in turn: these times are the code path's, not a mesh's "
+          f"gain")
+    check(stale == 0, f"train-mesh: {stale} stale replica tensors")
+    check(cos >= 0.999, f"train-mesh: mesh encode after training, cosine {cos}")
+    check(launches == {"stage2_maxsim": 0, "flash_attention": 0},
+          f"train-mesh: kernel launches {launches}; training launches neither kernel")
+    out.update(mesh_ms=ms, mesh_first_loss=first,
+               mesh_encode_cos=cos, mesh_stale=stale, mesh_launches=launches,
+               mesh_phase_s=seconds)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # [examples] and [quality]: the entry points a user runs
 # ---------------------------------------------------------------------------
 
@@ -2331,8 +2529,9 @@ def main() -> int:
           f"on {card_line()}")
 
     del enc
-    tr = train_phase(device, bert_cfg=BertConfig(vocab_size=len(bench_vocab_tokenizer().vocab)),
-                     work_dir=BUILD_DIR)
+    train_cfg = BertConfig(vocab_size=len(bench_vocab_tokenizer().vocab))
+    tm = train_mesh_phase(device, bert_cfg=train_cfg)
+    tr = train_phase(device, bert_cfg=train_cfg, work_dir=BUILD_DIR)
     ex = examples_phase(device, BUILD_DIR)
     ql = quality_phase(device)
 
@@ -2350,7 +2549,8 @@ def main() -> int:
                       "examples_seconds": ex["examples_seconds"],
                       "examples_eval": ex["examples_eval"], "quality": ql["quality"],
                       "quality_s": ql["quality_s"],
-                      "multidevice": {k: v for k, v in md.items() if k != "md_dryrun"}}))
+                      "multidevice": {k: v for k, v in md.items() if k != "md_dryrun"},
+                      "train_mesh": {k: v for k, v in tm.items() if k != "mesh_launches"}}))
     print(card_line())
     kernels = [dict(
         name="stage2_maxsim", route="cuda", variant="mma.sync-3xtf32",
@@ -2365,7 +2565,8 @@ def main() -> int:
                           "serve-http": live["http_launches"], "tune": live["tune_launches"],
                           "update": live["update_launches"], "train": tr["train_search_launches"],
                           "examples": ex["examples_launches"], "quality": ql["quality_launches"],
-                          "multidevice": md["md_launches"]},
+                          "multidevice": md["md_launches"],
+                          "train-mesh": tm["mesh_launches"]["stage2_maxsim"]},
     ), dict(
         name="flash_attention", route="cuda", variant="mma.sync",
         source="colbert_torch/csrc/flash_attention.cu",
@@ -2378,7 +2579,8 @@ def main() -> int:
                           "train": tr["train_flash_launches"],
                           "examples": ex["examples_flash_launches"],
                           "quality": ql["quality_flash_launches"],
-                          "multidevice": md["md_flash_launches"]},
+                          "multidevice": md["md_flash_launches"],
+                          "train-mesh": tm["mesh_launches"]["flash_attention"]},
     )]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

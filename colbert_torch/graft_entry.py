@@ -3,8 +3,9 @@
 - :func:`entry`: one forward step of the flagship model, a bert-base
   ColBERT doc encode, as a function and its arguments;
 - :func:`dryrun_multichip`: the sharded index-build step, the sharded
-  exhaustive scorer, the sharded index against the single-device one and
-  the tensor-parallel encode over an n-device mesh, on tiny shapes.
+  exhaustive scorer, the sharded index against the single-device one, the
+  tensor-parallel encode and a dp x tp training step over an n-device
+  mesh, on tiny shapes.
 """
 
 from __future__ import annotations
@@ -58,7 +59,15 @@ def dryrun_multichip(n_devices: int, *, device: str | torch.device = "cuda") -> 
       single-device :class:`DeviceIndex`'s top-k (exhaustive probing) up
       to ties, scores within 1e-4;
     - with ``n_devices >= 2``, the tensor-parallel encode over a
-      ``(n/2, 2)`` mesh equals the single-device fp32 encode within 1e-4.
+      ``(n/2, 2)`` mesh equals the single-device fp32 encode within 1e-4;
+      then one training step over that mesh (``torch.optim.Adam(lr=1e-3)``,
+      fp32, ``n_devices`` triples of the tiny tensors, as the JAX hook's)
+      has a finite loss and moves some parameter, and equals the same step
+      on one device: loss 1e-5 relative, each gradient within 1e-4 x its
+      max |g| + 1e-7, each updated parameter within 1e-5 (entries whose
+      one-device gradient is nonzero and below 1e-6, where Adam's first
+      update lr * g / (|g| + 1e-8) follows the gradient's rounding, within
+      the lr).
 
     With fewer cards than ``n_devices`` the mesh repeats the first card
     (on ``device="cpu"``: the CPU), so every shard still runs."""
@@ -125,7 +134,7 @@ def dryrun_multichip(n_devices: int, *, device: str | torch.device = "cuda") -> 
                                                     rtol=1e-4, atol=1e-4),
            f"sharded pids {p_sh} vs {p_1}")
 
-    tp_err = None
+    tp_err = tp_loss = None
     if n_devices >= 2:
         from colbert_torch.config import ColBERTConfig
 
@@ -139,13 +148,49 @@ def dryrun_multichip(n_devices: int, *, device: str | torch.device = "cuda") -> 
             out = tp_enc._forward("encode_batch", ids, mask, keep, dtype_name="float32")[:B]
         tp_err = float((out - ref).abs().max())
         _check(tp_err <= 1e-4, f"tensor-parallel encode differs by {tp_err}")
+        tp_loss = _dp_tp_train_step(tp_enc, ids, mask, keep, n_devices)
 
     line = (f"dryrun_multichip OK: mesh={mesh.shape} on {[str(d) for d in devices]}, "
             f"codes={tuple(codes.shape)}, shift={shift:.4f}, sharded serving top-k == "
             f"single-device top-k"
-            + (f", tp encode max err={tp_err:.2e}" if tp_err is not None else ""))
+            + (f", tp encode max err={tp_err:.2e}" if tp_err is not None else "")
+            + (f", dp x tp train step loss={tp_loss:.4f}" if tp_loss is not None else ""))
     print(line)
     return line
+
+
+def _dp_tp_train_step(enc, ids, mask, keep, n: int) -> float:
+    """One Adam step over ``enc``'s mesh on ``n`` triples (queries: the
+    first 8 tokens of rows ``[0, n)``; positives those rows, negatives rows
+    ``[n, 2n)``), checked against the same step on one device -> its loss."""
+    import copy
+
+    from colbert_torch.training.trainer import make_mesh_train_step, make_train_step
+
+    one = copy.deepcopy(enc.model)
+    host = {"q_ids": ids[:n, :8], "q_mask": mask[:n, :8], "pos_ids": ids[:n],
+            "pos_mask": mask[:n], "pos_keep": keep[:n], "neg_ids": ids[n:2 * n],
+            "neg_mask": mask[n:2 * n], "neg_keep": keep[n:2 * n]}
+    before = [p.detach().clone() for p in enc.model.parameters()]
+    loss = make_mesh_train_step(
+        enc, torch.optim.Adam(enc.model.parameters(), lr=1e-3))(host)["loss"]
+    want = make_train_step(one, torch.optim.Adam(one.parameters(), lr=1e-3),
+                           dtype_name="float32")(dict(zip(host, enc._put_batch(*host.values()))))
+    _check(np.isfinite(loss), f"train step loss {loss}")
+    rel = abs(loss - want["loss"]) / abs(want["loss"])
+    _check(rel <= 1e-5, f"train step loss {loss} vs one device {want['loss']}")
+    with torch.no_grad():
+        moved = max(float((p - b).abs().max()) for p, b in zip(enc.model.parameters(), before))
+        _check(moved > 0, "training step did not update any parameter")
+        for (name, p), q in zip(enc.model.named_parameters(), one.parameters()):
+            g = q.grad.abs()
+            grad_err = float((p.grad - q.grad).abs().max())
+            _check(grad_err <= 1e-4 * float(g.max()) + 1e-7, f"train step gradient {name}")
+            apart = (g < 1e-6) & (g != 0)
+            diff = (p - q).abs()
+            _check(bool((diff[~apart] <= 1e-5).all() and (diff[apart] <= 1e-3).all()),
+                   f"train step parameter {name} differs by {float(diff.max())}")
+    return loss
 
 
 def _check(cond: bool, what: str) -> None:

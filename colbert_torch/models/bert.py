@@ -17,7 +17,8 @@ the backward recomputes a layer's activations instead of keeping every
 layer's attention temporaries; the values do not change.
 :class:`TensorParallelBert` is the forward split over a mesh's model axis
 (Megatron; :mod:`colbert_torch.parallel.tp`), each shard a
-:class:`BertLayerShard` per layer.
+:class:`BertLayerShard` per layer; autograd goes through it, so the mesh
+trainer differentiates it as it does :class:`BertModel`.
 
 Parameter names follow the JAX pytree (``q``, ``k``, ``v``, ``attn_out``,
 ``attn_ln``, ``mlp_in``, ``mlp_out``, ``mlp_ln`` per layer); ``nn.Linear``
@@ -182,8 +183,9 @@ class BertLayerShard(nn.Module):
     def __init__(self, layer: BertLayer, m: int, n: int) -> None:
         super().__init__()
         H, I = layer.q.in_features, layer.mlp_in.out_features
-        hs = slice(m * H // n, (m + 1) * H // n)
-        ms = slice(m * I // n, (m + 1) * I // n)
+        # the full layer's hidden (heads) and MLP slices this shard holds
+        self.hs = hs = slice(m * H // n, (m + 1) * H // n)
+        self.ms = ms = slice(m * I // n, (m + 1) * I // n)
         self.num_heads = layer.num_heads // n
         self.act = layer.act
 
@@ -217,9 +219,16 @@ class TensorParallelBert:
     one all-reduce per block of the Megatron scheme, before the residual
     layer norm. The embeddings, layer norms and row-parallel biases are
     replicated: they run once, on ``devices[0]``, whose result every shard
-    reads. Forward only (no ``remat``); not an ``nn.Module``, so moving a
-    model that holds it leaves the shards on their devices. ``bert`` must
-    lie on ``devices[0]``."""
+    reads. Autograd goes through it under the caller's grad mode: moving
+    ``x`` to a shard's device and the reduce's sum are differentiable, so
+    their backward gives Megatron's f/g operators (the column-parallel
+    input's gradient summed over the shards, the reduce's gradient copied
+    to each); with ``remat`` each block runs under ``torch.utils.checkpoint``
+    as :class:`BertModel`'s layers do. Not an ``nn.Module``, so moving a
+    model that holds it leaves the shards on their devices, and its
+    ``.parameters()`` list none of the shards' weights
+    (:func:`colbert_torch.parallel.tp.param_links` enumerates them). ``bert``
+    must lie on ``devices[0]``."""
 
     def __init__(self, bert: BertModel, devices) -> None:
         self.config = bert.config
@@ -236,21 +245,29 @@ class TensorParallelBert:
             total = total + p.to(home, torch.float32)
         return (total + bias.to(parts[0].dtype).float()).to(parts[0].dtype)
 
-    @torch.no_grad()
+    def _block(self, i: int, x: torch.Tensor, biases: list[torch.Tensor],
+               use_flash: bool) -> torch.Tensor:
+        """Layer ``i``: the attention partials, their reduce, the layer norm,
+        the MLP partials, their reduce and the layer norm."""
+        layer = self.base.layers[i]
+        attn = self._reduce([sh[i].attention_partial(x.to(d), b, use_flash)
+                             for sh, d, b in zip(self.shards, self.devices, biases)],
+                            layer.attn_out.bias)
+        x = layer.attn_ln(x + attn)
+        mlp = self._reduce([sh[i].mlp_partial(x.to(d))
+                            for sh, d in zip(self.shards, self.devices)],
+                           layer.mlp_out.bias)
+        return layer.mlp_ln(x + mlp)
+
     def __call__(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                  dtype: torch.dtype = torch.bfloat16, use_flash: bool = False,
                  remat: bool = False) -> torch.Tensor:
-        if remat:
-            raise ValueError("the tensor-parallel forward is inference only (remat=False)")
         x, mask_bias = self.base.embed(input_ids, attention_mask, dtype)
         biases = [mask_bias.to(d) for d in self.devices]
-        for i, layer in enumerate(self.base.layers):
-            attn = self._reduce([sh[i].attention_partial(x.to(d), b, use_flash)
-                                 for sh, d, b in zip(self.shards, self.devices, biases)],
-                                layer.attn_out.bias)
-            x = layer.attn_ln(x + attn)
-            mlp = self._reduce([sh[i].mlp_partial(x.to(d))
-                                for sh, d in zip(self.shards, self.devices)],
-                               layer.mlp_out.bias)
-            x = layer.mlp_ln(x + mlp)
+        for i in range(len(self.base.layers)):
+            if remat:
+                x = checkpoint(self._block, i, x, biases, use_flash, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = self._block(i, x, biases, use_flash)
         return x

@@ -151,22 +151,31 @@ class ColBERTEncoder:
         if self._strict_buckets and self.length_bucket % 128 != 0:
             self.length_bucket = 128
         self.mesh = None
-        self._replicas: list[ColBERT] = []
+        self._replicas: dict[int, ColBERT] = {}
 
     def attach_mesh(self, mesh) -> None:
-        """Encode data-parallel over ``mesh``: batches split over its data
-        axis, each shard through its own model (:func:`colbert_torch.parallel.tp.shard_params`:
-        the model replicated on the shard's device, or with a model axis
-        above 1 split Megatron-style over the shard's model group). Outputs
-        gather on this encoder's device. Every data shard must lie in this
-        process."""
+        """Encode and train data-parallel over ``mesh``: batches split over
+        its data axis, each shard through its own model
+        (:func:`colbert_torch.parallel.tp.shard_params`: the model
+        replicated on the shard's device, or with a model axis above 1 split
+        Megatron-style over the shard's model group), built for the data
+        shards this process owns. Encode outputs gather on this encoder's
+        device, so an encode needs every data shard in this process; a mesh
+        that spans processes trains (:class:`colbert_torch.training.ColBERTTrainer`)
+        but does not encode."""
         from colbert_torch.parallel import launch
         from colbert_torch.parallel.tp import shard_params
 
-        if launch.owned_data_shards(mesh) != list(range(mesh.shape["data"])):
-            raise ValueError("a mesh encode needs every data shard in this process")
-        self._replicas = shard_params(self.model, mesh)
+        self._replicas = shard_params(self.model, mesh, launch.owned_data_shards(mesh))
         self.mesh = mesh
+
+    def refresh_replicas(self) -> None:
+        """Copy ``self.model``'s weights into the mesh's replicas and shards
+        (after an optimizer step on the model), so that every later mesh
+        encode is the current model's."""
+        from colbert_torch.parallel.tp import refresh_replicas
+
+        refresh_replicas(self.model, self._replicas)
 
     @property
     def bert_config(self):
@@ -199,13 +208,15 @@ class ColBERTEncoder:
         if self.mesh is None:
             return getattr(self.model, method)(*self._put_batch(ids, mask, keep), *extra, **kw)
         ndev = self.mesh.shape["data"]
+        if sorted(self._replicas) != list(range(ndev)):
+            raise ValueError("a mesh encode needs every data shard in this process")
         n = ids.shape[0]
         pad = -(-n // ndev) * ndev - n
         if pad:
             ids, mask, keep = (np.pad(a, ((0, pad), (0, 0))) for a in (ids, mask, keep))
         rows = ids.shape[0] // ndev
         outs = []
-        for s, model in enumerate(self._replicas):
+        for s, model in self._replicas.items():
             dev = self.mesh.data_device(s)
             part = [a[s * rows:(s + 1) * rows] for a in (ids, mask, keep)]
             outs.append(getattr(model, method)(*self._put_batch(*part, device=dev),

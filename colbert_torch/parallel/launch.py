@@ -19,7 +19,10 @@ NCCL init raises; nothing here falls back to another backend.
 A cross-process sum or gather is each process's own shards, in shard order,
 followed by one ``all_gather``; sums add the gathered per-shard parts in
 global shard order, so a multi-process run adds in the same order as a
-single-process one and gives the same bits.
+single-process one and gives the same bits. A mesh training step gathers
+the shards' embeddings the same way, its own shards' keeping their graphs
+(:func:`gather_keeping_grads`), and sums the gradients over the processes
+in rank order (:func:`sum_grads`).
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import torch.distributed as dist
 
 __all__ = ["initialize", "is_initialized", "process_index", "process_count",
            "owned_data_shards", "put_replicated", "put_data_sharded", "gather_shards",
-           "sum_shards", "allgather_host"]
+           "sum_shards", "gather_keeping_grads", "sum_grads", "allgather_host"]
 
 BACKENDS = ("nccl", "gloo")
 
@@ -147,6 +150,47 @@ def sum_shards(parts: dict[int, torch.Tensor], mesh) -> tuple[torch.Tensor, torc
     for t in gathered[1:]:
         total += t
     return total, dev
+
+
+def gather_keeping_grads(parts: dict[int, torch.Tensor], mesh,
+                         device: torch.device) -> list[torch.Tensor]:
+    """Every data shard's tensor (equal shapes), in shard order, on
+    ``device``, where this process's own parts keep their autograd graphs:
+    the other processes' parts arrive through one ``all_gather`` without
+    grad and this process's own are spliced back in. Every process then
+    computes the same function of the gathered tensors, and a backward
+    through it reaches exactly the local shards' graphs. Without a process
+    group the parts just move to ``device``."""
+    if not dist.is_initialized():
+        D = mesh.shape["data"]
+        if sorted(parts) != list(range(D)):
+            raise ValueError(f"missing shard parts: have {sorted(parts)} of {D}")
+        return [parts[s].to(device) for s in range(D)]
+    gathered, _ = gather_shards({s: t.detach() for s, t in parts.items()}, mesh)
+    out = [t.to(device) for t in gathered]
+    for s, t in parts.items():
+        out[s] = t.to(device)
+    return out
+
+
+def sum_grads(params: list[torch.Tensor]) -> None:
+    """Replace each parameter's ``.grad`` with its sum over the processes:
+    one ``all_gather`` of a flat buffer of every gradient, added in rank
+    order (as :func:`sum_shards` adds), so the result is the same bits on
+    every process and from run to run. A no-op without a process group."""
+    if not dist.is_initialized():
+        return
+    grads = [p.grad for p in params]
+    flat = torch.cat([g.reshape(-1) for g in grads]).to(_comm_device())
+    bufs = [torch.empty_like(flat) for _ in range(dist.get_world_size())]
+    dist.all_gather(bufs, flat)
+    total = bufs[0].clone()
+    for b in bufs[1:]:
+        total += b
+    offset = 0
+    for g in grads:
+        g.copy_(total[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
 
 
 def allgather_host(arr: np.ndarray) -> np.ndarray:

@@ -18,10 +18,14 @@ The JAX trainer's optax chain maps to torch as follows:
   ``multiplier(0)`` to the first ``optimizer.step()`` as well);
 - ``optax.clip_by_global_norm`` -> ``clip_grad_norm_``.
 
-Training runs on the encoder's device. The encoder's own methods hold
-``no_grad``; the step calls ``model.forward_normalized`` directly, as the
-JAX step calls ``encode_batch`` on the params. Attention is the
-materialized one: the JAX step does not route to flash either.
+Training runs on the encoder's device, or over the mesh that
+``ColBERTEncoder.attach_mesh`` attached (:func:`make_mesh_train_step`:
+DP, TP, dp x tp, and meshes that span processes), computing the JAX mesh
+step's function: the loss of the whole batch, in-batch negatives across
+every shard included. The encoder's own methods hold ``no_grad``; the step
+calls ``model.forward_normalized`` directly, as the JAX step calls
+``encode_batch`` on the params. Attention is the materialized one: the JAX
+step does not route to flash either.
 """
 
 from __future__ import annotations
@@ -42,9 +46,12 @@ __all__ = [
     "colbert_maxsim",
     "pairwise_softmax_loss",
     "distill_kl_loss",
+    "embed_batch",
+    "loss_on_embeddings",
     "train_loss",
     "lr_multiplier",
     "make_train_step",
+    "make_mesh_train_step",
     "ColBERTTrainer",
 ]
 
@@ -90,20 +97,17 @@ def _inbatch_loss(S_pos: torch.Tensor, scores_neg: torch.Tensor) -> torch.Tensor
     return -F.log_softmax(logits, dim=-1).gather(1, labels[:, None]).mean()
 
 
-def train_loss(
+def embed_batch(
     model: ColBERT,
     batch: dict,
     *,
     dtype_name: str = "bfloat16",
-    in_batch_negatives: bool = True,
     remat: bool = True,
-) -> Tuple[torch.Tensor, dict]:
-    """The JAX step's ``loss_fn`` -> (loss, metrics as 0-dim tensors).
-
-    ``batch`` holds device tensors: ``q_ids``/``q_mask`` (B, Lq),
-    ``pos_ids``/``pos_mask``/``pos_keep`` and ``neg_ids``/``neg_mask``/
-    ``neg_keep`` (B, Ld), and optionally ``teacher_scores`` (B, 2), which
-    selects the distillation objective."""
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The step's two forwards -> (Q, D+, D-): the query forward, and one
+    doc forward over ``[positives; negatives]``. ``batch`` holds device
+    tensors: ``q_ids``/``q_mask`` (B, Lq), ``pos_ids``/``pos_mask``/
+    ``pos_keep`` and ``neg_ids``/``neg_mask``/``neg_keep`` (B, Ld)."""
     B = batch["q_ids"].shape[0]
     q_keep = torch.ones_like(batch["q_mask"])  # queries keep every position
     Q = model.forward_normalized(batch["q_ids"], batch["q_mask"], q_keep,
@@ -112,12 +116,26 @@ def train_loss(
     d_mask = torch.cat([batch["pos_mask"], batch["neg_mask"]])
     d_keep = torch.cat([batch["pos_keep"], batch["neg_keep"]])
     D = model.forward_normalized(d_ids, d_mask, d_keep, dtype_name=dtype_name, remat=remat)
-    Dp, Dn = D[:B], D[B:]
-    kp, kn = d_keep[:B], d_keep[B:]
-    if "teacher_scores" in batch:
+    return Q, D[:B], D[B:]
+
+
+def loss_on_embeddings(
+    Q: torch.Tensor,
+    Dp: torch.Tensor,
+    Dn: torch.Tensor,
+    kp: torch.Tensor,
+    kn: torch.Tensor,
+    *,
+    teacher_scores: torch.Tensor | None = None,
+    in_batch_negatives: bool = True,
+) -> Tuple[torch.Tensor, dict]:
+    """The JAX step's loss on the batch's embeddings -> (loss, metrics as
+    0-dim tensors). ``kp``/``kn``: the docs' keep masks; ``teacher_scores``
+    (B, 2) selects the distillation objective."""
+    if teacher_scores is not None:
         s_pos = torch.diagonal(colbert_maxsim(Q, Dp, kp))
         s_neg = torch.diagonal(colbert_maxsim(Q, Dn, kn))
-        loss = distill_kl_loss(torch.stack([s_pos, s_neg], dim=-1), batch["teacher_scores"])
+        loss = distill_kl_loss(torch.stack([s_pos, s_neg], dim=-1), teacher_scores)
     elif in_batch_negatives:
         S_pos = colbert_maxsim(Q, Dp, kp)                   # (B, B)
         s_neg = torch.diagonal(colbert_maxsim(Q, Dn, kn))   # (B,)
@@ -130,6 +148,24 @@ def train_loss(
     metrics = {"loss": loss.detach(), "pairwise_acc": (s_pos > s_neg).float().mean(),
                "margin": (s_pos - s_neg).mean().detach()}
     return loss, metrics
+
+
+def train_loss(
+    model: ColBERT,
+    batch: dict,
+    *,
+    dtype_name: str = "bfloat16",
+    in_batch_negatives: bool = True,
+    remat: bool = True,
+) -> Tuple[torch.Tensor, dict]:
+    """The JAX step's ``loss_fn`` -> (loss, metrics as 0-dim tensors):
+    :func:`embed_batch`, then :func:`loss_on_embeddings`. ``batch`` as
+    there, and optionally ``teacher_scores`` (B, 2), which selects the
+    distillation objective."""
+    Q, Dp, Dn = embed_batch(model, batch, dtype_name=dtype_name, remat=remat)
+    return loss_on_embeddings(Q, Dp, Dn, batch["pos_keep"], batch["neg_keep"],
+                              teacher_scores=batch.get("teacher_scores"),
+                              in_batch_negatives=in_batch_negatives)
 
 
 def lr_multiplier(warmup_steps: int = 0, total_steps: int | None = None) -> Callable[[int], float]:
@@ -154,6 +190,20 @@ def lr_multiplier(warmup_steps: int = 0, total_steps: int | None = None) -> Call
     if warmup_steps:
         return lambda count: min(count, warmup_steps) / warmup_steps
     return lambda count: 1.0
+
+
+def _update(params, optimizer, scheduler, max_grad_norm, metrics: dict) -> dict:
+    """Clip, ``optimizer.step()``, ``scheduler.step()`` -> the metrics as
+    Python floats."""
+    if max_grad_norm is not None:
+        # scales by max_norm / (norm + 1e-6) where optax divides by the
+        # norm itself: a relative 1e-6
+        torch.nn.utils.clip_grad_norm_(params, max_grad_norm)
+    optimizer.step()
+    if scheduler is not None:
+        scheduler.step()
+    values = torch.stack(list(metrics.values())).tolist()  # one device sync
+    return dict(zip(metrics, values))
 
 
 def make_train_step(
@@ -182,15 +232,77 @@ def make_train_step(
         # a gradient tensor, zeros included (unused vocab and position rows,
         # token_type row 1): AdamW then decays every entry, as optax's adamw
         # does; it would skip a parameter whose grad were None
-        if max_grad_norm is not None:
-            # scales by max_norm / (norm + 1e-6) where optax divides by the
-            # norm itself: a relative 1e-6
-            torch.nn.utils.clip_grad_norm_(params, max_grad_norm)
-        optimizer.step()
-        if scheduler is not None:
-            scheduler.step()
-        values = torch.stack(list(metrics.values())).tolist()  # one device sync
-        return dict(zip(metrics, values))
+        return _update(params, optimizer, scheduler, max_grad_norm, metrics)
+
+    return step
+
+
+def make_mesh_train_step(
+    encoder: ColBERTEncoder,
+    optimizer: torch.optim.Optimizer,
+    *,
+    in_batch_negatives: bool = True,
+    scheduler=None,
+    max_grad_norm: float | None = None,
+) -> Callable[[dict], dict]:
+    """-> ``step(host batch) -> metrics``: one step of ``optimizer`` (over
+    ``encoder.model``'s parameters) over the mesh attached to ``encoder``,
+    the JAX mesh step's function. ``host`` holds the whole batch's numpy
+    arrays (``ColBERTTrainer._tensorize``, on every process); the batch
+    must divide the data axis (pad rows would enter the loss mean).
+
+    Data shard ``s`` takes rows ``[s*B/n, (s+1)*B/n)`` and runs
+    :func:`embed_batch` through its replica (or tensor-parallel model) with
+    each layer recomputed. Q, D+ and D- gather on the encoder's device in
+    shard order, across processes with this process's shards keeping their
+    graphs (:func:`colbert_torch.parallel.launch.gather_keeping_grads`), and
+    :func:`loss_on_embeddings` computes the loss of the whole batch: its
+    (B, B) in-batch matrix spans every shard, which a mean of per-shard
+    losses would not. The backward reaches each shard's weights; their
+    gradients add into the full parameters in a fixed order
+    (:func:`colbert_torch.parallel.tp.reduce_grads`), then over the
+    processes (:func:`colbert_torch.parallel.launch.sum_grads`); then clip,
+    ``optimizer.step()``, ``scheduler.step()``, and the replicas take the
+    updated weights (``encoder.refresh_replicas``)."""
+    from colbert_torch.parallel import launch
+    from colbert_torch.parallel.tp import reduce_grads
+
+    model = encoder.model
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    dtype_name = encoder.config.activation_dtype
+    embedded = ("q_ids", "q_mask", "pos_ids", "pos_mask", "pos_keep", "neg_ids",
+                "neg_mask", "neg_keep")
+
+    def step(host: dict) -> dict:
+        mesh = encoder.mesh
+        n = mesh.shape["data"]
+        B = host["q_ids"].shape[0]
+        if B % n:
+            raise ValueError(f"batch size {B} must divide the data axis ({n} devices) "
+                             f"for mesh training")
+        rows = B // n
+        optimizer.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            parts = {"Q": {}, "Dp": {}, "Dn": {}}
+            for s, replica in encoder._replicas.items():
+                shard = encoder._put_batch(*(host[k][s * rows:(s + 1) * rows] for k in embedded),
+                                           device=mesh.data_device(s))
+                Q, Dp, Dn = embed_batch(replica, dict(zip(embedded, shard)),
+                                        dtype_name=dtype_name, remat=True)
+                parts["Q"][s], parts["Dp"][s], parts["Dn"][s] = Q, Dp, Dn
+            Q, Dp, Dn = (torch.cat(launch.gather_keeping_grads(parts[k], mesh, encoder.device))
+                         for k in ("Q", "Dp", "Dn"))
+            kp, kn = encoder._put_batch(host["pos_keep"], host["neg_keep"])
+            teacher = host.get("teacher_scores")
+            loss, metrics = loss_on_embeddings(
+                Q, Dp, Dn, kp, kn, in_batch_negatives=in_batch_negatives,
+                teacher_scores=None if teacher is None else encoder._put_batch(teacher)[0])
+            loss.backward()
+        reduce_grads(model, encoder._replicas)
+        launch.sum_grads(list(model.parameters()))
+        metrics = _update(params, optimizer, scheduler, max_grad_norm, metrics)
+        encoder.refresh_replicas()
+        return metrics
 
     return step
 
@@ -206,8 +318,12 @@ class ColBERTTrainer:
     no schedule), as in the JAX trainer; after construction the field holds
     the optimizer built. The default is ``AdamW(learning_rate,
     weight_decay)`` after global-norm clipping to ``max_grad_norm``, under
-    :func:`lr_multiplier`'s schedule. There is no mesh: training runs on
-    the encoder's one device."""
+    :func:`lr_multiplier`'s schedule. The optimizer holds
+    ``encoder.model``'s parameters. With a mesh attached to the encoder
+    (``encoder.attach_mesh``) each step runs over it
+    (:func:`make_mesh_train_step`) and the encoder's replicas take the
+    updated weights, so every later encode, checkpoint and index sees the
+    trained model."""
 
     encoder: ColBERTEncoder
     learning_rate: float = 3e-5
@@ -234,6 +350,10 @@ class ColBERTTrainer:
             self.encoder.model, self.optimizer,
             dtype_name=self.encoder.config.activation_dtype,
             in_batch_negatives=self.in_batch_negatives,
+            scheduler=self.scheduler, max_grad_norm=max_grad_norm,
+        )
+        self._mesh_step = make_mesh_train_step(
+            self.encoder, self.optimizer, in_batch_negatives=self.in_batch_negatives,
             scheduler=self.scheduler, max_grad_norm=max_grad_norm,
         )
         self.history: list[dict] = []
@@ -269,12 +389,15 @@ class ColBERTTrainer:
 
         With ``teacher_scores`` (B, 2), a cross-encoder's (pos, neg) scores,
         the step optimizes ColBERTv2's KL distillation objective instead of
-        the contrastive cross-entropy."""
+        the contrastive cross-entropy. Over a mesh the batch must divide the
+        data axis (``ValueError``, as in the JAX trainer)."""
         host = self._tensorize(triples)
         if teacher_scores is not None:
             host["teacher_scores"] = np.asarray(teacher_scores, np.float32)
-        batch = dict(zip(host, self.encoder._put_batch(*host.values())))
-        metrics = self._step(batch)
+        if self.encoder.mesh is not None:
+            metrics = self._mesh_step(host)
+        else:
+            metrics = self._step(dict(zip(host, self.encoder._put_batch(*host.values()))))
         self.history.append(metrics)
         return metrics
 

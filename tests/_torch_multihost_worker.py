@@ -2,12 +2,23 @@
 gloo cluster whose 4-shard CPU mesh gives it 2 shards. It streams only its
 own shards' rows from disk, runs the sharded search, the sharded k-means and
 the sharded quantiles over the whole mesh, and checks each against the
-single-process results the parent saved, bit for bit. Not a pytest module."""
+single-process results the parent saved, bit for bit; then one training
+step over the mesh, whose loss and parameters it holds to the parent's
+within 1e-6. Not a pytest module."""
 
 import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def train_encoder():
+    """The tiny fp32 encoder both sides train, from seed 0, on the CPU."""
+    from colbert_torch.config import ColBERTConfig
+    from colbert_torch.utils.testing import make_encoder
+
+    return make_encoder(dim=32, seed=0, device="cpu", config=ColBERTConfig(
+        dim=32, doc_maxlen=64, query_maxlen=16, activation_dtype="float32"))
 
 
 def main() -> None:
@@ -63,6 +74,26 @@ def main() -> None:
                                          [0.25, 0.5, 0.75], mesh)
     np.testing.assert_array_equal(values.numpy(), exp["quantiles"])
     assert float(mean_abs) == float(exp["mean_abs"])
+
+    from colbert_torch.training import ColBERTTrainer
+
+    enc = train_encoder()
+    enc.attach_mesh(mesh)  # spans both processes: it trains, it does not encode
+    try:
+        enc.encode_queries(["a query"])
+        raise AssertionError("a mesh encode across processes did not raise")
+    except ValueError as e:
+        assert "every data shard" in str(e), e
+    triples = [tuple(t) for t in exp["train_triples"]]
+    loss = ColBERTTrainer(enc, learning_rate=1e-3).train_step(triples)["loss"]
+    np.testing.assert_allclose(loss, float(exp["train_loss"]), rtol=1e-6)
+    worst = 0.0
+    for k, v in enc.model.state_dict().items():
+        np.testing.assert_allclose(v.numpy(), exp[f"train_param.{k}"], rtol=0, atol=1e-6,
+                                   err_msg=k)
+        worst = max(worst, float(np.abs(v.numpy() - exp[f"train_param.{k}"]).max()))
+    print(f"train step: loss {loss!r} vs {float(exp['train_loss'])!r}, max |param diff| "
+          f"{worst:.3e}", flush=True)
 
     torch.distributed.destroy_process_group()
     print(f"MULTIHOST_OK p{me}", flush=True)

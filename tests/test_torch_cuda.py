@@ -15,7 +15,9 @@ scores as direct ``search_batch`` of the same batches); and the
 stage-2 launch through the ``mma`` kernel; a 4-shard sharded index on one
 card (one ``mma`` stage-2 launch per shard, equal to the CPU's up to ties)
 and a tensor-parallel encode over two model shards (flash per shard, cosine
-0.999 in bf16, 1e-4 in fp32). Every test skips
+0.999 in bf16, 1e-4 in fp32); a 2-layer fp32 training step over a DP and
+a dp x tp mesh of the card repeated against the one-device step (loss
+1e-5 relative, gradients within 1e-4 x their max + 1e-7). Every test skips
 without a GPU. This file imports no JAX; on a machine without JAX run it as
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -418,3 +420,43 @@ def test_tensor_parallel_encode_on_the_card(cuda_device):
         a32 = tp._forward("encode_batch", ids, mask, keep, dtype_name="float32")
         b32 = one._forward("encode_batch", ids, mask, keep, dtype_name="float32")
         assert float((a32 - b32).abs()[k].max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 1), (2, 2)])
+def test_mesh_training_step_on_the_card(cuda_device, shape):
+    """One AdamW step of a 2-layer bert-base-width model in fp32 over a
+    mesh of the card repeated, against the same step on one device: loss
+    1e-5 relative, every gradient entry within 1e-4 x its tensor's max |g|
+    + 1e-7, every parameter within 1e-2 x lr (entries whose one-device
+    gradient is nonzero and below 1e-6, where Adam's first update follows
+    the gradient's rounding: within the lr, as chip_smoke.py holds them)."""
+    from colbert_torch.config import ColBERTConfig
+    from colbert_torch.models.bert import BertConfig
+    from colbert_torch.parallel.mesh import make_mesh
+    from colbert_torch.training import ColBERTTrainer
+    from colbert_torch.utils.testing import make_encoder, make_vocab, synthetic_collection
+
+    lr = 1e-3
+    cfg = BertConfig(vocab_size=len(make_vocab()), num_hidden_layers=2)
+    ccfg = ColBERTConfig(dim=128, doc_maxlen=64, query_maxlen=16, activation_dtype="float32")
+    docs = synthetic_collection(16, seed=1, words_per_doc=10)
+    triples = [(" ".join(docs[i].split()[:4]), docs[i], docs[8 + i]) for i in range(8)]
+    out = {}
+    for mesh in (None, shape):
+        enc = make_encoder(dim=128, config=ccfg, bert_config=cfg, device=cuda_device)
+        if mesh is not None:
+            enc.attach_mesh(make_mesh(*mesh, devices=["cuda:0"] * (mesh[0] * mesh[1])))
+        loss = ColBERTTrainer(enc, learning_rate=lr).train_step(triples)["loss"]
+        params = list(enc.model.parameters())
+        out[mesh] = (loss, [p.grad.clone() for p in params], [p.detach().clone() for p in params])
+    (loss, grads, params), (loss1, grads1, params1) = out[shape], out[None]
+    assert abs(loss - loss1) <= 1e-5 * abs(loss1), (loss, loss1)
+    for i, (g, g1, p, p1) in enumerate(zip(grads, grads1, params, params1)):
+        grad_err = float((g - g1).abs().max())
+        assert grad_err <= 1e-4 * float(g1.abs().max()) + 1e-7, (i, grad_err)
+        apart = (g1.abs() < 1e-6) & (g1 != 0)
+        diff = (p - p1).abs()
+        strict = float(diff[~apart].max()) if (~apart).any() else 0.0
+        loose = float(diff[apart].max()) if apart.any() else 0.0
+        assert strict <= 1e-2 * lr and loose <= lr, (i, strict, loose)

@@ -2,9 +2,12 @@
 loopback, ``colbert_torch.parallel.launch``) must reproduce the
 single-process 4-shard port bit for bit: the sharded search over shards each
 process streams from disk itself, sharded k-means and the sharded
-quantiles (the port's counterpart of tests/test_multihost.py). The parent
-computes the expected results on a single-process 4-shard CPU mesh; each
-worker owns 2 of the 4 shards."""
+quantiles (the port's counterpart of tests/test_multihost.py); and one
+``ColBERTTrainer`` step over the 4-shard mesh, whose loss and updated
+parameters must equal the single-process step within 1e-6 (its gradient
+sums over the processes in another order than one process's autograd
+does). The parent computes the expected results on a single-process
+4-shard CPU mesh; each worker owns 2 of the 4 shards."""
 
 import os
 import socket
@@ -20,8 +23,10 @@ from colbert_torch.parallel.kmeans_dist import kmeans_sharded
 from colbert_torch.parallel.mesh import make_mesh
 from colbert_torch.parallel.sharded_index import ShardedDeviceIndex
 from colbert_torch.storage import format as fmt
-from colbert_torch.utils.testing import synthesize_index
+from colbert_torch.training import ColBERTTrainer
+from colbert_torch.utils.testing import synthesize_index, synthetic_collection
 
+from _torch_multihost_worker import train_encoder
 from _torch_parity import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -31,6 +36,12 @@ def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
         return s.getsockname()[1]
+
+
+def _triples(n: int) -> list[tuple[str, str, str]]:
+    """Positives share the query's words; negatives are other documents."""
+    docs = synthetic_collection(2 * n, seed=1, words_per_doc=10)
+    return [(" ".join(docs[i].split()[:4]), docs[i], docs[n + i]) for i in range(n)]
 
 
 def test_two_process_cluster_matches_single_process(tmp_path):
@@ -67,13 +78,19 @@ def test_two_process_cluster_matches_single_process(tmp_path):
     kinit = rng.permutation(512)[:16]
     kres = kmeans_sharded(kdata, 16, mesh, niters=4, init_idx=kinit)
     values, mean_abs = sharded_quantiles(torch.from_numpy(kdata), [0.25, 0.5, 0.75], mesh)
+    triples = _triples(8)
+    enc = train_encoder()
+    enc.attach_mesh(mesh)
+    loss = ColBERTTrainer(enc, learning_rate=1e-3).train_step(triples)["loss"]
     expected = str(tmp_path / "expected.npz")
     np.savez(expected, Q=Q, pids=pids, scores=scores, reads=np.asarray(reads),
              widths=np.asarray([sharded.max_cell_length, sharded.probe_dup_max]),
              kmeans_data=kdata, kmeans_init=kinit,
              kmeans_centroids=kres.centroids.numpy(),
              kmeans_assignments=kres.assignments.numpy(),
-             quantiles=values.numpy(), mean_abs=np.float32(mean_abs))
+             quantiles=values.numpy(), mean_abs=np.float32(mean_abs),
+             train_triples=np.asarray(triples), train_loss=np.float64(loss),
+             **{f"train_param.{k}": v.numpy() for k, v in enc.model.state_dict().items()})
 
     port = _free_port()
     worker = os.path.join(REPO, "tests", "_torch_multihost_worker.py")

@@ -200,4 +200,4 @@ def test_dryrun_multichip_on_cpu():
 
     line = dryrun_multichip(4, device="cpu")
     assert line.startswith("dryrun_multichip OK")
-    assert "'data': 4" in line and "tp encode" in line
+    assert "'data': 4" in line and "tp encode" in line and "dp x tp train step loss=" in line
