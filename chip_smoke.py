@@ -157,7 +157,22 @@
    2e-2 relative of one device's; after the dp x tp training no replica or
    shard is stale and a 32-row bf16 mesh encode is within cosine 0.999 of
    the trained model's; neither kernel launches.
-12. Prints the card's name and power limit, a ``kernels`` JSON line (each
+12. ``[bench]``: the port's benchmark scripts as subprocesses, the way a
+   user runs them, each within its own time limit: ``bench_torch.py`` at
+   its defaults (4,096 passages, bert-base, bf16): exit 0, stdout exactly
+   seven identical four-key ``index_build_passages_per_sec`` lines with a
+   positive value, no flash launch in the headline build, 12 ``mma`` flash
+   launches per ``flash_probe`` batch, every serving stage-2 launch
+   ``mma``; ``bench_mfu_torch.py 128``, ``bench_scale_torch.py 16384`` and
+   ``bench_sharded_torch.py`` over a 65,536-passage ``synthesize_index``
+   index on 4 shards of the card: exit 0 and the JSON summary with its
+   keys as the last line. Every stage-2 score ``bench_torch.py``'s serving
+   stage returns (B=128 and B=64 batches, the funnel's three points, the
+   self-retrieval probe) is within TOL of the exact MaxSim of its pid.
+   Prints each script's stderr, seconds and summary; the ``kernels``
+   line's ``bench`` entries count only ``bench_torch.py``'s serving stage
+   (stage 2) and ``flash_probe`` (flash), as that script logs them.
+13. Prints the card's name and power limit, a ``kernels`` JSON line (each
    kernel's launches on the main path and by path), and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -168,6 +183,7 @@ a checkout of the repository, it exits non-zero at once.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import shutil
@@ -226,6 +242,27 @@ TRAIN_MESH_STEPS = 10       # [train-mesh]: bf16 steps per mesh, the first 3 war
 TRAIN_MESHES = {"dp": (2, 1), "tp": (1, 2), "dp x tp": (2, 2)}
 QUALITY_PASSAGES = 16_384   # [quality]: the drill's corpus and training steps
 QUALITY_STEPS = 100
+BENCH_SHARDED_PASSAGES = 65_536  # [bench]: the synthesized index bench_sharded_torch serves
+# [bench]: each benchmark script's arguments (the sharded one's index comes
+# first) and its wall-clock limit in seconds
+BENCH_RUNS = {"bench_torch.py": ([], 420), "bench_mfu_torch.py": (["128"], 180),
+              "bench_scale_torch.py": (["16384"], 300),
+              "bench_sharded_torch.py": (["32", "--devices", "4"], 180)}
+HEADLINE_KEYS = ["metric", "value", "unit", "vs_baseline"]
+BENCH_STAGES = ["build", "encode_stages", "device_mfu_stage", "flash_probe",
+                "serve_and_probe", "host_backend_stage"]
+# the last stdout line of the other three scripts (CHANGES.md lists them)
+BENCH_SUMMARY_KEYS = {
+    "bench_mfu_torch.py": ["metric", "seqlen", "unit", "value"],
+    "bench_scale_torch.py": ["metric", "n_passages", "value", "unit", "vs_baseline",
+                             "build_seconds", "peak_host_rss_gb", "device_gb", "index_gb",
+                             "qps_b64_tuned", "qps_b64_stream_tuned",
+                             "qps_b64_stream_quality", "self_retrieval_s1",
+                             "score_recall_at_10"],
+    "bench_sharded_torch.py": ["metric", "n_passages", "value", "unit", "per_shard_gb",
+                               "total_device_gb", "peak_host_rss_gb", "qps_one_card",
+                               "probe_dup_max"],
+}
 
 
 class SmokeFailure(Exception):
@@ -2402,6 +2439,110 @@ def quality_phase(device, *, n_passages: int = QUALITY_PASSAGES,
                 quality_flash_launches=flash, quality_oracle_err=err)
 
 
+# ---------------------------------------------------------------------------
+# [bench]: the benchmark scripts as a user runs them
+# ---------------------------------------------------------------------------
+
+
+def run_bench_script(script: str, argv: list[str], timeout: int):
+    """``python <script> <argv>`` from the checkout's root, its stderr
+    printed line by line -> (the finished process, its seconds). Fails
+    unless it exits 0 within ``timeout`` seconds."""
+    t0 = time.perf_counter()
+    try:
+        done = subprocess.run([sys.executable, os.path.join(ROOT, script)] + argv, cwd=ROOT,
+                              capture_output=True, text=True, timeout=timeout)
+    except subprocess.TimeoutExpired as e:
+        raise SmokeFailure(f"[bench] {script} ran past its {timeout} s limit: "
+                           f"{(e.stderr or b'')[-2000:]!r}") from e
+    dt = time.perf_counter() - t0
+    for line in done.stderr.splitlines():
+        print(f"[bench] {script} | {line}")
+    check(done.returncode == 0, f"[bench] {script} {argv} exited {done.returncode}")
+    print(f"[bench] {script} {' '.join(argv)}: exit 0 in {dt:.1f}s")
+    return done, dt
+
+
+def bench_summary(script: str, stdout: str) -> dict:
+    """The JSON summary on the last stdout line, with the keys CHANGES.md lists."""
+    out = json.loads(stdout.strip().splitlines()[-1])
+    check(list(out) == BENCH_SUMMARY_KEYS[script],
+          f"[bench] {script} printed keys {list(out)}, expected {BENCH_SUMMARY_KEYS[script]}")
+    return out
+
+
+def bench_phase(device, work_dir: str) -> dict:
+    """Run the four benchmark scripts as subprocesses and check what they
+    print: ``bench_torch.py``'s stdout is seven identical four-key headline
+    lines with a positive value; its headline build launched no flash
+    kernel, its ``flash_probe`` launched the ``mma`` flash kernel once per
+    layer per batch and its serving stage only ``mma`` stage-2 kernels (on
+    the card), each of whose returned scores is within TOL of the exact
+    MaxSim of its pid; the other three print their JSON summary last. The
+    sharded rehearsal serves a ``synthesize_index`` index of
+    BENCH_SHARDED_PASSAGES made here."""
+    from colbert_torch.utils.testing import synthesize_index
+
+    out = {"seconds": {}}
+    done, out["seconds"]["bench_torch.py"] = run_bench_script(
+        "bench_torch.py", *BENCH_RUNS["bench_torch.py"])
+    lines = done.stdout.splitlines()
+    check(len(lines) == 7 and len(set(lines)) == 1,
+          f"[bench] bench_torch.py stdout is not 7 identical lines: {lines}")
+    head = json.loads(lines[0])
+    check(list(head) == HEADLINE_KEYS and head["metric"] == "index_build_passages_per_sec"
+          and head["value"] > 0, f"[bench] bench_torch.py headline {head}")
+    stages = {line.split()[1]: json.loads(line.split(" ", 2)[2])
+              for line in done.stderr.splitlines() if line.startswith("stage ")}
+    check(list(stages) == BENCH_STAGES, f"[bench] bench_torch.py stages {list(stages)}")
+    on_card = device.type == "cuda"
+    build, fl, serve = stages["build"], stages["flash_probe"], stages["serve_and_probe"]
+    check(build["flash_launches"] == {"mma": 0, "simt": 0},
+          f"[bench] the headline build launched flash kernels {build['flash_launches']}")
+    want = fl["layers"] * fl["batches"] if on_card else 0
+    check(fl["flash_launches"] == {"mma": want, "simt": 0},
+          f"[bench] flash_probe launches {fl['flash_launches']}, expected {want} mma "
+          f"({fl['layers']} per batch)")
+    s2 = serve["stage2_launches"]
+    check(not on_card or (s2["mma"] > 0 and s2["simt"] == 0),
+          f"[bench] serving stage-2 launches {s2}, expected all mma")
+    errs = serve["stage2_vs_oracle"]
+    check(len(errs) == 6 and all(np.isfinite(e) and e <= TOL for e in errs.values()),
+          f"[bench] serving stage-2 scores vs the exact MaxSim, max |diff| {errs} (limit {TOL})")
+    print(f"[bench] bench_torch.py serving stage-2 scores vs the exact MaxSim of each "
+          f"returned pid: max |diff| {max(errs.values()):.3e} over {list(errs)} (limit {TOL})")
+    out["bench_torch"] = {"headline": head, "stages": stages}
+
+    for script in ("bench_mfu_torch.py", "bench_scale_torch.py"):
+        done, out["seconds"][script] = run_bench_script(script, *BENCH_RUNS[script])
+        out[script.removesuffix(".py")] = summary = bench_summary(script, done.stdout)
+        print(f"[bench] {script}: {json.dumps(summary)}")
+    check(all(v is not None and v > 0 for v in out["bench_mfu_torch"]["value"].values())
+          or not on_card, f"[bench] MFU sweep {out['bench_mfu_torch']['value']}")
+    check(out["bench_scale_torch"]["value"] > 0, "[bench] scale build p/s")
+
+    index_dir = os.path.join(work_dir, "smoke_bench_sharded")
+    try:
+        t0 = time.perf_counter()
+        synthesize_index(index_dir, BENCH_SHARDED_PASSAGES)
+        print(f"[bench] synthesize_index of {BENCH_SHARDED_PASSAGES} passages in "
+              f"{time.perf_counter() - t0:.1f}s")
+        argv, limit = BENCH_RUNS["bench_sharded_torch.py"]
+        done, out["seconds"]["bench_sharded_torch.py"] = run_bench_script(
+            "bench_sharded_torch.py", [index_dir] + argv, limit)
+    finally:
+        shutil.rmtree(index_dir, ignore_errors=True)
+    out["bench_sharded_torch"] = sharded = bench_summary("bench_sharded_torch.py", done.stdout)
+    print(f"[bench] bench_sharded_torch.py: {json.dumps(sharded)}")
+    check(sharded["n_passages"] == BENCH_SHARDED_PASSAGES and sharded["qps_one_card"] > 0,
+          f"[bench] sharded summary {sharded}")
+    out["stage2_launches"] = s2["mma"] + s2["simt"]
+    out["flash_launches"] = fl["flash_launches"]["mma"] + fl["flash_launches"]["simt"]
+    print(f"[bench] seconds {json.dumps({k: round(v, 1) for k, v in out['seconds'].items()})}; "
+          f"headline {json.dumps(head)} on {card_line()}")
+    return out
+
+
 def kernel_label(mangled: str) -> str:
     """``flash_mma_kernel<bf16,64>`` (``stage2_mma_kernel<2>``) for the
     mangled name of that instantiation of one of the repo's kernels, else
@@ -2534,6 +2675,9 @@ def main() -> int:
     tr = train_phase(device, bert_cfg=train_cfg, work_dir=BUILD_DIR)
     ex = examples_phase(device, BUILD_DIR)
     ql = quality_phase(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bn = bench_phase(device, BUILD_DIR)
 
     print(json.dumps({"qps": mp["qps"], "stream_qps": mp["stream_qps"],
                       "stages_ms": mp["stages_ms"],
@@ -2550,7 +2694,10 @@ def main() -> int:
                       "examples_eval": ex["examples_eval"], "quality": ql["quality"],
                       "quality_s": ql["quality_s"],
                       "multidevice": {k: v for k, v in md.items() if k != "md_dryrun"},
-                      "train_mesh": {k: v for k, v in tm.items() if k != "mesh_launches"}}))
+                      "train_mesh": {k: v for k, v in tm.items() if k != "mesh_launches"},
+                      "bench": {k: bn[k] for k in ("seconds", "bench_mfu_torch",
+                                                   "bench_scale_torch", "bench_sharded_torch")}
+                      | {"headline": bn["bench_torch"]["headline"]}}))
     print(card_line())
     kernels = [dict(
         name="stage2_maxsim", route="cuda", variant="mma.sync-3xtf32",
@@ -2566,7 +2713,8 @@ def main() -> int:
                           "update": live["update_launches"], "train": tr["train_search_launches"],
                           "examples": ex["examples_launches"], "quality": ql["quality_launches"],
                           "multidevice": md["md_launches"],
-                          "train-mesh": tm["mesh_launches"]["stage2_maxsim"]},
+                          "train-mesh": tm["mesh_launches"]["stage2_maxsim"],
+                          "bench: bench_torch.py serve_and_probe": bn["stage2_launches"]},
     ), dict(
         name="flash_attention", route="cuda", variant="mma.sync",
         source="colbert_torch/csrc/flash_attention.cu",
@@ -2580,7 +2728,8 @@ def main() -> int:
                           "examples": ex["examples_flash_launches"],
                           "quality": ql["quality_flash_launches"],
                           "multidevice": md["md_flash_launches"],
-                          "train-mesh": tm["mesh_launches"]["flash_attention"]},
+                          "train-mesh": tm["mesh_launches"]["flash_attention"],
+                          "bench: bench_torch.py flash_probe": bn["flash_launches"]},
     )]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -51,7 +51,7 @@ from colbert_torch.utils.tracing import Tracer, device_phase
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["Indexer", "index", "load_collection"]
+__all__ = ["Indexer", "index", "load_collection", "build_ivf"]
 
 # the small-corpus fast path compresses the device-resident sample when it
 # holds at most this many (padded) rows

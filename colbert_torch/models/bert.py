@@ -54,6 +54,18 @@ class BertConfig:
     hidden_act: str = "gelu"
 
     @classmethod
+    def tiny(cls, vocab_size: int = 128) -> "BertConfig":
+        """Deterministic test-sized config."""
+        return cls(
+            vocab_size=vocab_size,
+            hidden_size=64,
+            num_hidden_layers=2,
+            num_attention_heads=4,
+            intermediate_size=128,
+            max_position_embeddings=64,
+        )
+
+    @classmethod
     def from_hf_dict(cls, d: dict) -> "BertConfig":
         names = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in names})

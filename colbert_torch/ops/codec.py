@@ -22,7 +22,7 @@ import torch
 
 __all__ = ["word_bits", "unpack_bits", "bucket_indices_packed",
            "decompress_residuals", "decompress", "bucket_indices", "binarize",
-           "pack_bits", "compress_into_codes", "compress_residuals", "compress",
+           "unbinarize", "pack_bits", "compress_into_codes", "compress_residuals", "compress",
            "bucket_cutoffs_and_weights"]
 
 _BYTE_WEIGHTS = tuple(1 << k for k in range(8))  # LSB-first
@@ -110,6 +110,14 @@ def binarize(indices: torch.Tensor, nbits: int) -> torch.Tensor:
     (reference residual.jl:197-208)."""
     shifts = torch.arange(nbits, dtype=torch.int32, device=indices.device)
     return (indices.to(torch.int32)[..., None] >> shifts) & 1
+
+
+def unbinarize(bits: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`binarize`: bits ``(n, dim, nbits)`` -> bucket ids
+    ``(n, dim)`` int32 (reference residual.jl ``_unbinarize``)."""
+    nbits = bits.shape[-1]
+    weights = 1 << torch.arange(nbits, dtype=torch.int32, device=bits.device)
+    return (bits.to(torch.int32) * weights).sum(dim=-1, dtype=torch.int32)
 
 
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:

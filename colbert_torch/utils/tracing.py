@@ -5,13 +5,15 @@ Every traced phase adds its wall time and a count under its name;
 end in a ``torch.cuda.synchronize()`` inside the phase, since CUDA launches
 return before the work is done: :class:`colbert_torch.retrieval.searcher.Searcher`
 does so only when it is given a tracer, so untraced serving keeps its
-launches asynchronous.
+launches asynchronous. :func:`profile_trace` writes a ``torch.profiler``
+trace (a Chrome trace file) of what runs inside it.
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Iterator
@@ -20,7 +22,7 @@ import torch
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["Tracer", "device_phase"]
+__all__ = ["Tracer", "device_phase", "profile_trace"]
 
 
 @dataclass
@@ -60,3 +62,22 @@ def device_phase(tracer: Tracer | None, name: str) -> Iterator[None]:
         yield
         if torch.cuda.is_available():
             torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def profile_trace(trace_dir: str | None) -> Iterator[None]:
+    """``torch.profiler`` trace of the block, written into ``trace_dir`` as a
+    Chrome trace file (CPU ops, and CUDA kernels when a GPU is present);
+    a no-op when ``trace_dir`` is None."""
+    if trace_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(trace_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))

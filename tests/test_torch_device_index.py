@@ -23,7 +23,7 @@ from colbert_tpu.retrieval.device_index import DeviceIndex as JDeviceIndex
 from colbert_tpu.storage import format as jfmt
 from colbert_torch.retrieval.device_index import DeviceIndex, probe_compensation
 
-from _torch_parity import assert_topk_agree, build_reference_index
+from _torch_parity import assert_topk_agree, build_reference_index, one_torch_thread  # noqa: F401
 
 TOL = 1e-4
 

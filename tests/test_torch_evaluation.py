@@ -25,7 +25,7 @@ from colbert_torch.evaluation.autotune import OperatingPoint, tune_operating_poi
 from colbert_torch.evaluation.oracle import exhaustive_scores, oracle_topk
 from colbert_torch.retrieval.searcher import Searcher
 
-from _torch_parity import port_encoder
+from _torch_parity import one_torch_thread, port_encoder  # noqa: F401
 
 GRID = (
     OperatingPoint(0, 8, stage1_refine=False),

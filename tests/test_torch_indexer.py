@@ -40,7 +40,7 @@ from colbert_torch.indexing.builder import Indexer
 from colbert_torch.retrieval.searcher import Searcher
 from colbert_torch.storage import format as fmt
 
-from _torch_parity import port_encoder
+from _torch_parity import one_torch_thread, port_encoder  # noqa: F401
 
 BF16_STEP = 2.0 ** -8
 NEAR_TIE = 2.0 ** -6

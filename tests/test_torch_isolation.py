@@ -32,7 +32,8 @@ def test_package_imports_no_jax():
                  "evaluation.quality", "graft_entry", "utils.testing",
                  "parallel.mesh", "parallel.launch", "parallel.kmeans_dist",
                  "parallel.search_dist", "parallel.sharded_index", "parallel.tp",
-                 "parallel.index_step", "ops.quantile"):
+                 "parallel.index_step", "ops.quantile", "ops.codec", "utils.tracing",
+                 "models.bert"):
         assert f"colbert_torch.{name}" in names
     code = (
         "import importlib, sys\n"
@@ -43,6 +44,11 @@ def test_package_imports_no_jax():
         "colbert_torch.ColBERTTrainer\n"
         "from colbert_torch.utils.testing import (bench_bert_config, make_bench_encoder,\n"
         "    synthetic_queries, time_qps, write_bench_checkpoint)\n"
+        "from colbert_torch.ops.codec import unbinarize\n"
+        "from colbert_torch.utils.tracing import profile_trace\n"
+        "from colbert_torch.indexing.builder import build_ivf\n"
+        "from colbert_torch.models.bert import BertConfig\n"
+        "BertConfig.tiny\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'colbert_tpu' or m.startswith('colbert_tpu.'))\n"
         "print(bad)\n"
@@ -59,6 +65,25 @@ def test_chip_smoke_imports_no_jax():
         "import sys\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'colbert_tpu')]\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    done = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert done.returncode == 0, done.stdout + done.stderr
+
+
+@pytest.mark.parametrize("script", ["bench_torch", "bench_mfu_torch", "bench_scale_torch",
+                                    "bench_sharded_torch"])
+def test_bench_scripts_import_no_jax(script):
+    """The port's benchmark scripts import neither jax nor colbert_tpu (nor
+    the JAX package's bench scripts)."""
+    code = (
+        "import sys\n"
+        f"import {script}\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'colbert_tpu')\n"
+        "       or m in ('bench', 'bench_mfu', 'bench_scale', 'bench_sharded')]\n"
+        "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)

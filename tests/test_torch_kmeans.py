@@ -13,6 +13,8 @@ from colbert_tpu.ops import kmeans as jkm
 from colbert_torch.indexing.codec_trainer import sample_bucket_step, train_codec
 from colbert_torch.ops import kmeans as tkm
 
+from _torch_parity import one_torch_thread  # noqa: F401
+
 TOL = 1e-5
 
 

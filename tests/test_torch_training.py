@@ -25,7 +25,7 @@ import torch
 from colbert_torch.models.colbert import from_jax_params, to_jax_params
 from colbert_torch.training import trainer as pt
 from colbert_tpu.training import trainer as jt
-from tests._torch_parity import port_encoder, to_numpy
+from tests._torch_parity import one_torch_thread, port_encoder, to_numpy  # noqa: F401
 
 LR = 1e-3
 
