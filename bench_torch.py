@@ -247,10 +247,10 @@ def device_mfu_stage(encoder) -> dict:
 def flash_probe(encoder, n: int = FLASH_PASSAGES) -> dict:
     """Encode ``n`` ~450-word passages at doc_maxlen 512 (128-wide buckets,
     so every batch pads to S=512) with ``use_flash`` off, then on, each
-    timed after a warm pass. Off is the port's materialized fp32 attention
-    (ROADMAP C3); on is the flash kernel, which must launch once per layer
-    per batch, every launch the tensor-core ``mma`` kernel. On the CPU both
-    passes run plain PyTorch and nothing launches."""
+    timed after a warm pass. Off is the port's materialized attention (bf16
+    operands, fp32 products); on is the flash kernel, which must launch once
+    per layer per batch, every launch the tensor-core ``mma`` kernel. On the
+    CPU both passes run plain PyTorch and nothing launches."""
     cfg = ColBERTConfig(dim=128, doc_maxlen=512, query_maxlen=32, index_bsize=128,
                         length_bucket=128, use_pallas=True, flash_min_seqlen=512)
     enc = ColBERTEncoder(encoder.model, encoder.tokenizer, cfg, device=encoder.device)
@@ -272,7 +272,7 @@ def flash_probe(encoder, n: int = FLASH_PASSAGES) -> dict:
     ratio = pps[True] / pps[False]
     log(f"flash attention at S={seqlens}, {len(batches)} batches of "
         f"{cfg.index_bsize}, device work only: flash kernel {pps[True]:.1f} p/s vs "
-        f"the materialized fp32 attention {pps[False]:.1f} p/s ({ratio:.2f}x); flash "
+        f"the materialized attention {pps[False]:.1f} p/s ({ratio:.2f}x); flash "
         f"launches in the timed pass {counts[True]} ({layers} layers x {len(batches)} "
         f"batches)")
     return {"passages": n, "batches": len(batches), "seqlens": seqlens, "layers": layers,

@@ -28,7 +28,11 @@
    kernel (through the wrapper's private launcher) and the plain version
    in turns with CUDA events, beside both bounds (3 TF32 products per
    fp32 product at the TF32 tensor-core peak; fp32 FMAs at the fp32 peak);
-   then both kernels at B = 1, 8 and 32 queries x 1024 candidates.
+   then both kernels at B = 1, 8 and 32 queries x 1024 candidates. On
+   the same batch's refine inputs (B=32 queries x 4,096 candidates) it
+   holds the refine on the card against the same function on the CPU
+   (1e-4) and times it beside a bytes bound (each valid token's code and
+   Lq table entries read once at 3.35 TB/s).
    On the same index and searcher:
    - ``[serve-batcher]``: 256 single queries from 16 threads through a
      ``BatchingSearcher`` (max_batch 32, max_wait 5 ms, two batches in
@@ -62,6 +66,14 @@
    S=512 in fp32 (through the ``simt`` kernel) vs the materialized
    attention, to 5e-4 (the JAX package's own bound); the embeddings in bf16
    (through the ``mma`` kernel) to a minimum cosine of 0.999.
+   ``[attention]``: BERT's materialized attention (the route off flash),
+   whose two products take bf16 operands into fp32 on the card, against
+   the fp32-upcast formulation it replaced, at B*S = 65,536 for S 128 and
+   160 (the headline build's padded lengths) and 512: the output within
+   one bf16 step, its time beside the upcast's and SDPA's (a yardstick);
+   the gradients at S=160 within 1e-2 x their max; in situ, bert-base bf16
+   embeddings of a ~110-word batch and of the S=512 corpus batch, new
+   against upcast, to a minimum cosine of 0.999.
 5. ``[build]``: ``Indexer.index`` builds a 20,000-passage long-document
    index (~450 words, padded to S=512) at bert-base width with bf16
    activations, the flash-routed configuration of ``bench.py``'s flash
@@ -91,8 +103,11 @@
    to 0 at 300, clipping at 1.0, bf16 activations, remat on. Before it:
    one step of the model's first 2 layers in fp32 (TF32 off) on the card
    and on the CPU (loss 1e-5 relative, gradients 1e-4 x their max,
-   parameters 1e-2 x lr), and remat on against off at full depth (loss
-   1e-6 relative, gradients 1e-3 x their max; peak memory of each). Then
+   parameters 1e-2 x lr), remat on against off at full depth (loss
+   1e-6 relative, gradients 1e-3 x their max; peak memory of each), and
+   a full-depth step through the card's bf16 attention route against the
+   same step with the fp32-upcast attention standing in for it (the
+   route's hand-written backward in situ; limits ATTN_STEP_*). Then
    300 steps: median ms per step after 3 warm-up steps, steps/s,
    triples/s, tokens/s and model TFLOP/s, the loss at steps 1-3 and every
    50, no flash launch, the last 20 steps' mean loss below the first 20's,
@@ -210,6 +225,13 @@ BUILD_PASSAGES = 20_000
 BUILD_MEAN_WORDS = 450
 IN_SITU_TOL = 5e-4          # tests/test_flash_attention.py:72
 IN_SITU_MIN_COS = 0.999     # bf16 embeddings with vs without the kernel
+# [train] check 3, bf16 steps through the attention route vs the upcast, on
+# [train]'s first three batches. Read on an NVIDIA H100 80GB HBM3 (700 W):
+# loss 2.9e-4 relative, gradients 0.064 of their norm (the word embedding's),
+# key bias 4.7e-7 of the largest |g|, at most.
+ATTN_STEP_LOSS_REL = 1e-3
+ATTN_STEP_GRAD_REL = 0.1
+ATTN_STEP_KBIAS = 1e-5
 SWEEP_ROWS = 65_536         # B*S of each [flash] sweep shape
 BATCHER_QUERIES = 256       # [serve-batcher]: single queries from 16 threads
 BATCHER_THREADS = 16
@@ -575,21 +597,64 @@ def main_path(device, *, n_passages: int, bert_cfg, index_dir: str,
         recorded.update(args=dict(zip(names, args)), kw=kw)
         return fm.stage2_maxsim_plain(*args, **kw)
 
+    refine_fn = di._approx_maxsim
+
+    def refine_recording(index, Q, pids, **kw):
+        recorded.update(refine=(index, Q, pids))
+        return refine_fn(index, Q, pids, **kw)
+
     kernel_fn = di.stage2_maxsim
-    di.stage2_maxsim = plain_recording
+    di.stage2_maxsim, di._approx_maxsim = plain_recording, refine_recording
     try:
         pp, sp = searcher.search_batch(batches[1], k=10)
     finally:
-        di.stage2_maxsim = kernel_fn
+        di.stage2_maxsim, di._approx_maxsim = kernel_fn, refine_fn
     why = agree_up_to_ties(pk, sk, pp, sp, TOL)
     err = float(np.abs(sk - sp).max())
     print(f"[serve] plain stage-2 re-score: max |score diff| {err:.3e}, "
           f"pids agree up to ties: {why is None}")
     check(why is None, f"kernel vs plain stage-2 on the main path: {why}")
     timing = time_stage2(recorded["args"], recorded["kw"]) if device.type == "cuda" else {}
+    if device.type == "cuda":
+        timing.update(refine_check(*recorded["refine"]))
     return dict(qps=qps, stream_qps=batch * n_batches / dt_stream,
                 launches=launches, by_variant=by_variant, stages_ms=stages,
                 rescore_err=err, encoder=enc, searcher=searcher, n_words=n_words, **timing)
+
+
+def refine_check(index, Q, pids) -> dict:
+    """On one served batch's refine inputs: the refine on the card against
+    the same function on the CPU (TOL), and its time beside a bytes bound
+    (each valid token's code and its Lq table entries read once)."""
+    import types
+
+    import torch
+
+    from colbert_torch.retrieval import device_index as di
+
+    with torch.no_grad():
+        cpu_index = types.SimpleNamespace(
+            max_doclen=index.max_doclen,
+            **{n: getattr(index, n).cpu() for n in ("centroids", "codes", "emb_offsets",
+                                                    "doclens")})
+        t0 = time.perf_counter()
+        want = di._approx_maxsim(cpu_index, Q.cpu(), pids.cpu())
+        cpu_s = time.perf_counter() - t0
+        got = di._approx_maxsim(index, Q, pids).cpu()
+        err = float((got - want).abs().max())
+        new1 = time_ms(lambda: di._approx_maxsim(index, Q, pids), 10)
+        new2 = time_ms(lambda: di._approx_maxsim(index, Q, pids), 10)
+    B, W = pids.shape
+    Lq = Q.shape[1]
+    tokens = int(index.doclens[pids].sum())
+    bound = tokens * 4 * (1 + Lq) / PEAK_BYTES * 1e3
+    chunk = max(1, di.REFINE_CHUNK_BYTES // di.refine_column_bytes(B, index.max_doclen, Lq))
+    print(f"[serve] refine on one batch's inputs (B={B} W={W} Ld={index.max_doclen} Lq={Lq}, "
+          f"{-(-W // chunk)} chunks of {chunk} columns, {tokens} valid tokens): card vs CPU "
+          f"max_abs_err={err:.3e} (limit {TOL}; CPU {cpu_s:.2f}s); ms={new1:.4f},{new2:.4f} "
+          f"bound_ms={bound:.4f} (bytes)")
+    check(np.isfinite(err) and err <= TOL, f"refine: card vs CPU {err} > {TOL}")
+    return dict(refine_err=err, refine_ms=(new1 + new2) / 2, refine_bound_ms=bound)
 
 
 def device_profile(fn) -> dict:
@@ -786,6 +851,110 @@ def flash_sweep(device, path_mask) -> None:
         print(f"[flash] sweep S={S} B={B} H=12 hd=64 bf16: kernel_ms={k1:.4f},{k2:.4f} "
               f"sdpa_ms={s1:.4f} materialized_ms={m1:.4f} bound_ms={bound:.4f} ({by})")
         del q, k, v, bias, qs, ks, vs, qb, kb, vb
+
+
+def upcast_stand_in(q, k, v, mask_bias, num_heads: int, use_flash: bool = False):
+    """``models.bert.upcast_attention`` with ``_attention``'s arguments, so
+    it can stand in for the card's bf16-operand route inside a forward or a
+    training step."""
+    from colbert_torch.models import bert
+
+    check(not use_flash, "upcast_stand_in stands in for the materialized route only")
+    return bert.upcast_attention(q, k, v, mask_bias, num_heads)
+
+
+def attention_phase(enc, batches) -> dict:
+    """BERT's materialized attention on bf16 operands with fp32 products
+    (``models.bert._attention`` on the card) against the upcast formulation:
+    at B*S = SWEEP_ROWS for the headline's S 128 and 160 and the build's
+    512 (bert-base heads, each row's length drawn from [S/2, S]), the
+    output within one bf16 step, times beside SDPA with the same mask (a
+    yardstick); at S=160 the gradients of q, k, v within 1e-2 x their max;
+    in situ, bert-base embeddings of each of ``batches`` with the new
+    branch against the upcast one, minimum cosine over kept tokens 0.999."""
+    import torch
+    import torch.nn.functional as F
+
+    from colbert_torch.models import bert
+
+    device = torch.device("cuda")
+    a = torch.ones(2, 4, 8, device=device, dtype=torch.bfloat16, requires_grad=True)
+    try:
+        torch.bmm(a, a.mT, out_dtype=torch.float32).sum().backward()
+        derivative = "has a derivative"
+    except RuntimeError as e:
+        derivative = f"has no derivative ({e})"
+    print(f"[attention] torch {torch.__version__}: aten::bmm.dtype {derivative}; the route's "
+          "backward is models.bert._MatmulF32's")
+    rng = np.random.default_rng(5)
+    out = {"shapes": {}}
+    for S in (128, 160, 512):
+        B = SWEEP_ROWS // S
+        q, k, v = (torch.from_numpy(rng.standard_normal((B, S, 768)).astype(np.float32))
+                   .to(device, torch.bfloat16) for _ in range(3))
+        lens = rng.integers(S // 2, S + 1, B)
+        mask = np.arange(S)[None] < lens[:, None]
+        bias = torch.from_numpy(np.where(mask, 0.0, np.finfo(np.float32).min)
+                                .astype(np.float32)).to(device)[:, None, None, :]
+        new = lambda: bert._attention(q, k, v, bias, 12)  # noqa: E731
+        old = lambda: bert.upcast_attention(q, k, v, bias, 12)  # noqa: E731
+        qs, ks, vs = (x.view(B, S, 12, 64).transpose(1, 2) for x in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qs, ks, vs, attn_mask=bias.to(torch.bfloat16))
+        with torch.no_grad():
+            got, want = new().float(), old().float()
+            err = (got - want).abs()
+            ok = bool((err <= 8e-3 * want.abs().clamp(min=1.0)).all())
+            max_err = float(err.max())
+            del got, want, err
+            o1, n1 = time_ms(old, 3), time_ms(new, 10)
+            n2, o2 = time_ms(new, 10), time_ms(old, 3)
+            lib = time_ms(sdpa, 10)
+        print(f"[attention] S={S} B={B} H=12 hd=64 bf16: bf16-operand vs upcast "
+              f"max_abs_err={max_err:.3e} within one bf16 step: {ok}; ms={n1:.4f},{n2:.4f} "
+              f"upcast_ms={o1:.4f},{o2:.4f} sdpa_ms={lib:.4f}")
+        check(np.isfinite(max_err) and ok, f"attention S={S}: bf16 branch vs upcast {max_err}")
+        out["shapes"][S] = dict(max_abs_err=max_err, ms=(n1 + n2) / 2, upcast_ms=(o1 + o2) / 2,
+                                sdpa_ms=lib)
+        if S == 160:
+            rows = 64
+            w = torch.randn(rows, S, 768, device=device, generator=torch.Generator(
+                device).manual_seed(0))
+            grads = []
+            for fn in (bert._attention, bert.upcast_attention):
+                xs = [x[:rows].detach().clone().requires_grad_(True) for x in (q, k, v)]
+                loss = (fn(*xs, bias[:rows], 12).float() * w).sum()
+                grads.append(torch.autograd.grad(loss, xs))
+            rel = max(float((a - b).float().abs().max() / b.float().abs().max())
+                      for a, b in zip(*grads))
+            print(f"[attention] backward S={S} B={rows}: max grad err / max |g| over q, k, "
+                  f"v {rel:.3e} (limit 1e-2)")
+            check(np.isfinite(rel) and rel <= 1e-2, f"attention backward: {rel}")
+            out["grad_rel"] = rel
+            del w, grads, xs, loss
+        del q, k, v, bias, qs, ks, vs
+        torch.cuda.empty_cache()
+
+    model = enc.model
+    cos = []
+    for _, ids, mask, keep in batches:
+        ids_d, mask_d, keep_d = enc._put_batch(ids, mask, keep)
+        with torch.no_grad():
+            ea = model.forward_normalized(ids_d, mask_d, keep_d, dtype_name="bfloat16")
+            bert._attention, new_attention = upcast_stand_in, bert._attention
+            try:
+                eb = model.forward_normalized(ids_d, mask_d, keep_d, dtype_name="bfloat16")
+            finally:
+                bert._attention = new_attention
+            cos.append(float((ea * eb).sum(-1)[keep_d].min()))
+        print(f"[attention] in situ, bert-base bf16 embeddings B={ids.shape[0]} "
+              f"S={ids.shape[1]}: bf16-operand vs upcast min_cosine={cos[-1]:.6f} "
+              f"(limit {IN_SITU_MIN_COS})")
+        del ea, eb
+    check(all(np.isfinite(c) and c >= IN_SITU_MIN_COS for c in cos),
+          f"attention in situ: min cosine {cos} < {IN_SITU_MIN_COS}")
+    out["in_situ_min_cos"] = min(cos)
+    return out
 
 
 def flash_in_situ(enc, batch) -> dict:
@@ -1733,28 +1902,34 @@ def step_card_vs_cpu(model, tokenizer, triples, device) -> dict:
                 check_masked_err=masked_err)
 
 
-def remat_on_off(model, batch, device) -> dict:
-    """Check 2: loss and gradients of one full-depth bf16 step with remat on
-    and off, from the same state (loss 1e-6 relative, each gradient within
-    1e-3 x its max |g|), and the peak device memory of each forward +
-    backward (parameters and gradients resident, no optimizer state)."""
+def bf16_step(model, batch, device, *, remat: bool):
+    """Loss, gradients and peak device memory of one full-depth bf16
+    forward + backward of ``model`` from its state (parameters and
+    gradients resident, no optimizer state, no step taken)."""
     import torch
 
     from colbert_torch.training.trainer import train_loss
 
-    params = list(model.parameters())
-    res = {}
-    for remat in (True, False):
-        model.zero_grad(set_to_none=True)
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-        loss, _ = train_loss(model, batch, dtype_name="bfloat16", remat=remat)
-        loss.backward()
-        peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else 0
-        res[remat] = (loss.item(), [p.grad.clone() for p in params], peak)
     model.zero_grad(set_to_none=True)
-    (l1, g1, m1), (l0, g0, m0) = res[True], res[False]
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    loss, _ = train_loss(model, batch, dtype_name="bfloat16", remat=remat)
+    loss.backward()
+    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else 0
+    grads = [p.grad.clone() for p in model.parameters()]
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads, peak
+
+
+def remat_on_off(model, batch, device) -> dict:
+    """Check 2: loss and gradients of one full-depth bf16 step with remat on
+    and off, from the same state (loss 1e-6 relative, each gradient within
+    1e-3 x its max |g|), and the peak device memory of each forward +
+    backward."""
+    import torch
+
+    (l1, g1, m1), (l0, g0, m0) = (bf16_step(model, batch, device, remat=r) for r in (True, False))
     loss_rel = abs(l1 - l0) / abs(l0)
     grad_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
                    for a, b in zip(g1, g0))
@@ -1769,12 +1944,52 @@ def remat_on_off(model, batch, device) -> dict:
                 peak_gib_no_remat=m0 / 2**30)
 
 
+def attention_route_step(model, batches, device) -> dict:
+    """Check 3: one full-depth bf16 step (remat on, as the trainer runs it)
+    on each of ``batches`` through the card's attention route (bf16
+    operands into fp32 products, whose backward is
+    ``models.bert._MatmulF32``'s own) against the same step with
+    ``bert.upcast_attention`` standing in for it, from the same state: loss
+    within ATTN_STEP_LOSS_REL relative, each gradient within
+    ATTN_STEP_GRAD_REL of its norm (||g - g_upcast|| / ||g_upcast||). The
+    key bias's gradient is 0 in exact arithmetic (see check 1), so each
+    side's is rounding noise: their difference is held to ATTN_STEP_KBIAS
+    x the largest |g| of any leaf."""
+    from colbert_torch.models import bert
+
+    names = [n for n, _ in model.named_parameters()]
+    zero = [n.endswith(".k.bias") for n in names]
+    loss_rel, worst, kbias = 0.0, (0.0, ""), 0.0
+    for batch in batches:
+        l1, g1, _ = bf16_step(model, batch, device, remat=True)
+        bert._attention, route = upcast_stand_in, bert._attention
+        try:
+            l0, g0, _ = bf16_step(model, batch, device, remat=True)
+        finally:
+            bert._attention = route
+        scale = max(float(b.abs().max()) for b in g0)
+        loss_rel = max(loss_rel, abs(l1 - l0) / abs(l0))
+        worst = max([worst] + [(float((a - b).norm() / b.norm().clamp(min=1e-30)), n)
+                               for a, b, n, z in zip(g1, g0, names, zero) if not z])
+        kbias = max([kbias] + [float((a - b).abs().max()) / scale
+                               for a, b, z in zip(g1, g0, zero) if z])
+    print(f"[train] attention route vs upcast, full depth, bf16, remat on, {len(batches)} "
+          f"batches: loss rel err {loss_rel:.3e} (limit {ATTN_STEP_LOSS_REL}); max ||grad err|| "
+          f"/ ||g|| {worst[0]:.3e} ({worst[1]}; limit {ATTN_STEP_GRAD_REL}); key-bias grad err "
+          f"/ largest |g| {kbias:.3e} (limit {ATTN_STEP_KBIAS})")
+    check(loss_rel <= ATTN_STEP_LOSS_REL, f"train: attention route changes the loss {loss_rel}")
+    check(worst[0] <= ATTN_STEP_GRAD_REL, f"train: attention route changes a gradient {worst}")
+    check(kbias <= ATTN_STEP_KBIAS, f"train: attention route, key-bias gradient {kbias}")
+    return dict(attn_step_loss_rel=loss_rel, attn_step_grad_rel=worst[0],
+                attn_step_kbias_rel=kbias)
+
+
 def train_phase(device, *, bert_cfg, n_passages: int = TRAIN_PASSAGES,
                 steps: int = TRAIN_STEPS, batch: int = TRAIN_BATCH, work_dir: str) -> dict:
     """[train]: ``ColBERTTrainer`` on a model of its own (random weights
     from a seed) over ``make_triples`` of the synthetic corpus, in-batch
     negatives, AdamW at lr TRAIN_LR with TRAIN_WARMUP warmup steps and the
-    cosine decay to 0 at ``steps``, clipping at 1.0, remat on; checks 1-2
+    cosine decay to 0 at ``steps``, clipping at 1.0, remat on; checks 1-3
     before, the loss falling, a profiled step, the checkpoint round trip,
     and an index built and searched with the trained encoder (check 5)."""
     import statistics
@@ -1811,9 +2026,17 @@ def train_phase(device, *, bert_cfg, n_passages: int = TRAIN_PASSAGES,
     enc = ColBERTEncoder(model, tokenizer, cfg, device=device)
     trainer = ColBERTTrainer(enc, learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
                              total_steps=steps, in_batch_negatives=True)
+
+    def device_batch(i: int) -> dict:
+        h = trainer._tensorize(triples[i * batch:(i + 1) * batch])
+        return dict(zip(h, enc._put_batch(*h.values())))
+
     host = trainer._tensorize(triples[:batch])
-    first = dict(zip(host, enc._put_batch(*host.values())))
+    first = device_batch(0)
     out.update(remat_on_off(enc.model, first, device))
+    if cuda:
+        out.update(attention_route_step(enc.model, [first, device_batch(1), device_batch(2)],
+                                        device))
     q_shape, d_shape = host["q_ids"].shape, (2 * batch, host["pos_ids"].shape[1])
     flops = train_flops(enc.model, q_shape, d_shape)
     tokens = q_shape[0] * q_shape[1] + d_shape[0] * d_shape[1]
@@ -2651,6 +2874,9 @@ def main() -> int:
     fl = flash_vs_plain(device, first[2])
     flash_sweep(device, first[2])
     fl.update(flash_in_situ(enc, first))
+    short = next(enc._doc_batches(synthetic_passages(enc.config.index_bsize, mean_words=110,
+                                                     seed=11)))
+    attn = attention_phase(enc, [short, first])
 
     build_dir = os.path.join(BUILD_DIR, "smoke_build_index")
     try:
@@ -2681,6 +2907,8 @@ def main() -> int:
 
     print(json.dumps({"qps": mp["qps"], "stream_qps": mp["stream_qps"],
                       "stages_ms": mp["stages_ms"],
+                      "refine": {k[7:]: mp[k] for k in mp if k.startswith("refine_")},
+                      "attention": attn,
                       "build_passages_per_s": bp["passages_per_s"],
                       "build_phases": bp["timings"], "self_top1": bs["self_top1"],
                       "batcher_qps": live["batcher_qps"], "http_rps": live["http_rps"],

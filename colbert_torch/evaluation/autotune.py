@@ -61,17 +61,22 @@ logger = logging.getLogger(__name__)
 
 __all__ = ["OperatingPoint", "TunedPoint", "TuneResult", "tune_operating_point"]
 
-# Analytic per-unit weights, relative to one stage-1 entry. From the traced
-# per-stage times of one B=32 search batch on an NVIDIA H100 80GB HBM3 at
-# 700 W (chip_smoke.py's [serve] phase: stage1 2.05 ms, refine 40.65 ms,
-# stage2 0.82 ms), each divided by the units cost() counts at that
-# configuration (per query: 2 probes x 32 tokens x cell_cap 672 = 43,008
-# entries; min(4 x 1024, 8192) x 160 = 655,360 refine rows; 1024 x 160 =
-# 163,840 stage-2 rows): PERF.md has the arithmetic. Used only to rank
-# points, never to predict time. The refine's weight reflects the refine's
-# host loop (ROADMAP C2) and is recalibrated when that changes.
+# Analytic per-unit weights, relative to one stage-1 entry, each a stage's
+# traced time on one B=32 search batch divided by the units cost() counts
+# at that configuration (per query: 2 probes x 32 tokens x cell_cap 672 =
+# 43,008 entries; min(4 x 1024, 8192) x 160 = 655,360 refine rows; 1024 x
+# 160 = 163,840 stage-2 rows), on an NVIDIA H100 80GB HBM3 at 700 W
+# (chip_smoke.py's [serve] phase). Stage 2: stage1 2.05 ms, stage2 0.82 ms
+# -> (0.82 / 163,840) / (2.05 / 43,008) = 0.105. The refine, one batched
+# pass per chunk: stage1 2.1297 ms, refine 2.4283 ms -> (2.4283 / 655,360)
+# / (2.1297 / 43,008) = 0.075 (0.049 in a second run: stage1 3.44 ms,
+# refine 2.5827 ms); the weight stays at 0.13, just above 0.125,
+# below which +2 probes (2 x 16 tokens x cell_cap 64 = 2,048 entries) no
+# longer cost less than a refine of 512 candidates x 32 rows (16,384 rows)
+# at the tests' sizes. PERF.md has the arithmetic. Used only to rank
+# points, never to predict time.
 _W_STAGE1_ENTRY = 1.0
-_W_REFINE_ROW = 1.30
+_W_REFINE_ROW = 0.13
 _W_STAGE2_ROW = 0.105
 
 

@@ -2,11 +2,14 @@
 
 Same math as ``bert_encode``: fp32 parameters cast to the activation dtype
 for each matrix product, layer norms computed in fp32, erf- or tanh-GELU
-on fp32 values, an additive attention-mask bias of ``finfo(float32).min``,
-and the materialized softmax attention of ``_attention(use_flash=False)``
-written out in torch ops (scores and the probability-weighted sum are
-accumulated in fp32 from the activation-dtype operands, as the JAX
-package's ``preferred_element_type=float32`` products are). With
+on fp32 values rounded once to the activation dtype, an additive
+attention-mask bias of ``finfo(float32).min``, and the materialized
+softmax attention of ``_attention(use_flash=False)`` written out in torch
+ops. Its two products take the activation-dtype operands and return fp32,
+as the JAX package's ``preferred_element_type=float32`` products do: on
+the card with bf16 or fp16 activations through ``aten::bmm.dtype``
+(:class:`_MatmulF32`), otherwise on the fp32 upcast of the operands (the
+same values: a product of two bf16 values is exact in fp32). With
 ``use_flash`` attention goes through
 :func:`colbert_torch.ops.flash_attention.flash_attention_bsh` (the CUDA
 kernel on the card, its plain version on the CPU) with the bias
@@ -81,11 +84,8 @@ class LayerNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x32 = x.float()
-        mu = x32.mean(dim=-1, keepdim=True)
-        var = (x32 - mu).square().mean(dim=-1, keepdim=True)
-        y = (x32 - mu) * torch.rsqrt(var + self.eps)
-        return (y * self.scale + self.bias).to(x.dtype)
+        return F.layer_norm(x.float(), (x.shape[-1],), self.scale, self.bias,
+                            self.eps).to(x.dtype)
 
 
 def _dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
@@ -94,6 +94,8 @@ def _dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
 
 
 def _activation(name: str, x: torch.Tensor) -> torch.Tensor:
+    """The MLP's activation in the dtype of ``x``: a bf16 or fp16 input is
+    computed in fp32 and rounded once, as ``act(x.astype(f32)).astype(dtype)``."""
     if name in ("gelu", "gelu_new"):
         # HF "gelu" is erf-based; "gelu_new" is the tanh approximation
         return F.gelu(x, approximate="tanh" if name == "gelu_new" else "none")
@@ -102,21 +104,63 @@ def _activation(name: str, x: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unsupported activation {name!r}")
 
 
-def _attention(q, k, v, mask_bias, num_heads: int, use_flash: bool = False):
-    """Multi-head attention of ``(B, S, heads * hd)`` projections under a
-    ``(B, 1, 1, S)`` additive mask bias."""
+class _MatmulF32(torch.autograd.Function):
+    """Batched ``a @ b`` of bf16 or fp16 CUDA operands with an fp32 result
+    (``aten::bmm.dtype``). Torch defines no derivative for that op; the
+    backward is the transpose rule of JAX's ``dot_general``: the fp32
+    cotangent times the other operand's fp32 values, cast to the operand's
+    dtype (what autograd gives the upcast formulation)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = torch.bmm(g, b.float().mT).to(a.dtype) if ctx.needs_input_grad[0] else None
+        gb = torch.bmm(a.float().mT, g).to(b.dtype) if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
+def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, S, heads * hd) -> (B, heads, S, hd)."""
+    B, S, H = x.shape
+    return x.reshape(B, S, num_heads, H // num_heads).transpose(1, 2)
+
+
+def upcast_attention(q, k, v, mask_bias, num_heads: int):
+    """The materialized attention with both products on the fp32 upcast of
+    their operands: the route of :func:`_attention` on the CPU and for fp32
+    activations, and the formulation its bf16/fp16 route on the card is
+    held against."""
     B, S, H = q.shape
-    hd = H // num_heads
-    if use_flash:
-        return flash_attention_bsh(q, k, v, mask_bias[:, 0, 0, :], num_heads=num_heads)
-
-    def split(x):  # (B, S, H) -> (B, heads, S, hd)
-        return x.reshape(B, S, num_heads, hd).transpose(1, 2)
-
-    qh, kh, vh = split(q), split(k), split(v)
-    scores = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) / math.sqrt(hd)
+    qh, kh, vh = (_split_heads(x, num_heads) for x in (q, k, v))
+    scores = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) / math.sqrt(H // num_heads)
     probs = torch.softmax(scores + mask_bias, dim=-1).to(q.dtype)
     out = torch.matmul(probs.float(), vh.float())
+    return out.transpose(1, 2).reshape(B, S, H).to(q.dtype)
+
+
+def _attention(q, k, v, mask_bias, num_heads: int, use_flash: bool = False):
+    """Multi-head attention of ``(B, S, heads * hd)`` projections under a
+    ``(B, 1, 1, S)`` additive mask bias. Without ``use_flash`` the route is
+    chosen by device and dtype alone: bf16 or fp16 on the card multiply the
+    activation-dtype operands into fp32 (:class:`_MatmulF32`); fp32
+    activations and the CPU take :func:`upcast_attention`."""
+    B, S, H = q.shape
+    if use_flash:
+        return flash_attention_bsh(q, k, v, mask_bias[:, 0, 0, :], num_heads=num_heads)
+    if q.device.type != "cuda" or q.dtype not in (torch.bfloat16, torch.float16):
+        return upcast_attention(q, k, v, mask_bias, num_heads)
+
+    def flat(x):  # (B, S, H) -> (B * heads, S, hd)
+        return _split_heads(x, num_heads).reshape(B * num_heads, S, -1)
+
+    scores = _MatmulF32.apply(flat(q), flat(k).mT).view(B, num_heads, S, S)
+    probs = torch.softmax(scores / math.sqrt(H // num_heads) + mask_bias, dim=-1).to(q.dtype)
+    out = _MatmulF32.apply(probs.view(B * num_heads, S, S), flat(v)).view(B, num_heads, S, -1)
     return out.transpose(1, 2).reshape(B, S, H).to(q.dtype)
 
 
@@ -140,7 +184,7 @@ class BertLayer(nn.Module):
         attn = _attention(_dense(self.q, x), _dense(self.k, x), _dense(self.v, x),
                           mask_bias, self.num_heads, use_flash)
         x = self.attn_ln(x + _dense(self.attn_out, attn))
-        h = _activation(self.act, _dense(self.mlp_in, x).float()).to(x.dtype)
+        h = _activation(self.act, _dense(self.mlp_in, x))
         return self.mlp_ln(x + _dense(self.mlp_out, h))
 
 
@@ -219,7 +263,7 @@ class BertLayerShard(nn.Module):
         return F.linear(attn, self.attn_out_w.to(x.dtype))
 
     def mlp_partial(self, x: torch.Tensor) -> torch.Tensor:
-        h = _activation(self.act, _dense(self.mlp_in, x).float()).to(x.dtype)
+        h = _activation(self.act, _dense(self.mlp_in, x))
         return F.linear(h, self.mlp_out_w.to(x.dtype))
 
 

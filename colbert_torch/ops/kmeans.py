@@ -40,14 +40,18 @@ def _adaptive_bsize(k: int, requested: int) -> int:
 
 
 def _centroid_terms(centroids: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """-> (centroidsᵀ fp32, ‖c‖² per centroid)."""
+    """-> (centroidsᵀ fp32, −‖c‖² per centroid)."""
     c = centroids.float()
-    return c.t(), (c * c).sum(dim=-1)
+    return c.t(), -(c * c).sum(dim=-1)
 
 
-def _assign_chunk(chunk: torch.Tensor, ct: torch.Tensor, c_sq: torch.Tensor) -> torch.Tensor:
-    """argmin_c ‖x − c‖² for one chunk via the max of 2·x·c − ‖c‖²."""
-    scores = 2.0 * torch.matmul(chunk.float(), ct) - c_sq
+def _assign_chunk(chunk: torch.Tensor, ct: torch.Tensor, neg_c_sq: torch.Tensor) -> torch.Tensor:
+    """argmin_c ‖x − c‖² for one chunk via the max of 2·x·c − ‖c‖², in one
+    GEMM that scales and adds the row bias in its epilogue (the scaling and
+    the negation are exact, so the scores are rounded once, as
+    ``2.0 * x @ ct - c_sq`` rounds them). A 1-D bias at beta 1 lets the
+    card's GEMM add it without first copying it across the tile."""
+    scores = torch.addmm(neg_c_sq, chunk.float(), ct, alpha=2.0)
     return torch.argmax(scores, dim=-1)
 
 
@@ -56,10 +60,10 @@ def assign_clusters(data: torch.Tensor, centroids: torch.Tensor, *,
     """Nearest centroid (squared distance) per row -> int64 ``(n,)``
     (reference utils.jl:71-79)."""
     bsize = _adaptive_bsize(centroids.shape[0], bsize)
-    ct, c_sq = _centroid_terms(centroids)
+    ct, neg_c_sq = _centroid_terms(centroids)
     out = torch.empty(data.shape[0], dtype=torch.int64, device=data.device)
     for s in range(0, data.shape[0], bsize):
-        out[s:s + bsize] = _assign_chunk(data[s:s + bsize], ct, c_sq)
+        out[s:s + bsize] = _assign_chunk(data[s:s + bsize], ct, neg_c_sq)
     return out
 
 
@@ -70,12 +74,12 @@ def lloyd_stats(data: torch.Tensor, centroids: torch.Tensor, *, k: int,
     under the current centroids. ``weights`` (0 = ignore the row) mark the
     valid rows of a padded sample."""
     bsize = _adaptive_bsize(k, bsize)
-    ct, c_sq = _centroid_terms(centroids)
+    ct, neg_c_sq = _centroid_terms(centroids)
     sums = torch.zeros((k, data.shape[1]), dtype=torch.float32, device=data.device)
     counts = torch.zeros((k,), dtype=torch.float32, device=data.device)
     for s in range(0, data.shape[0], bsize):
         chunk = data[s:s + bsize].float()
-        assign = _assign_chunk(chunk, ct, c_sq)
+        assign = _assign_chunk(chunk, ct, neg_c_sq)
         if weights is None:
             w = torch.ones(chunk.shape[0], dtype=torch.float32, device=data.device)
         else:

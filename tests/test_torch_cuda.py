@@ -10,7 +10,10 @@ the device and alignment rules of the wrappers; and the life of a live index
 on the card against the port on the CPU: ``IndexUpdater.add`` (codes equal up
 to near-ties), the exact oracle (within 1e-4) and a ``BatchingSearcher``
 whose loop thread launches and finishes the searches (the same pids and
-scores as direct ``search_batch`` of the same batches); and the
+scores as direct ``search_batch`` of the same batches); the refine on the
+card against the CPU (1e-4); BERT's materialized attention on bf16/fp16
+operands with fp32 products against the upcast formulation (one bf16 step,
+gradients within 1e-2 x their max); and the
 ``searching`` and ``evaluate`` entry points at their default device, every
 stage-2 launch through the ``mma`` kernel; a 4-shard sharded index on one
 card (one ``mma`` stage-2 launch per shard, equal to the CPU's up to ties)
@@ -220,6 +223,81 @@ def test_flash_mma_rejects_misaligned_inputs(cuda_device):
     with pytest.raises(ValueError, match="aligned"):
         fa.flash_attention(q, k, shifted, bias, num_heads=H)
     assert fa.flash_attention.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk_bytes", [None, 1 << 16])
+def test_refine_on_the_card_matches_the_cpu(cuda_device, tmp_path, chunk_bytes):
+    """The refine's batched chunk passes on the card against the CPU, in one
+    chunk (the default cap) and in many, with sentinel pids; then a search
+    through the refine, every pid both return scored within 1e-4."""
+    from colbert_torch.retrieval import device_index as di
+    from colbert_torch.storage import format as fmt
+    from colbert_torch.utils.testing import synthesize_index
+
+    path = str(tmp_path / "idx")
+    synthesize_index(path, 500, dim=128, nbits=2, avg_doclen=40, seed=2)
+    codec = fmt.load_codec(path)
+    ivf, ivf_lengths = fmt.load_ivf(path)
+    kw = dict(centroids=codec["centroids"], ivf=ivf, ivf_lengths=ivf_lengths,
+              doclens=np.asarray(fmt.load_all_doclens(path), np.int64),
+              bucket_weights=codec["bucket_weights"], nbits=2, stream_from=path)
+    gpu = di.DeviceIndex.build(device="cuda", **kw)
+    cpu = di.DeviceIndex.build(device="cpu", **kw)
+    g = torch.Generator().manual_seed(1)
+    Q = torch.nn.functional.normalize(torch.randn(4, 32, 128, generator=g), dim=-1)
+    pids = torch.randint(0, 500, (4, 300), generator=g)
+    pids[:, ::29] = 500  # the sentinel
+    cap = {} if chunk_bytes is None else {"chunk_bytes": chunk_bytes}
+    got = di._approx_maxsim(gpu, Q.to(cuda_device), pids.to(cuda_device), **cap).cpu()
+    want = di._approx_maxsim(cpu, Q, pids, **cap)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=TOL, rtol=0)
+    assert (got[:, ::29] == 0).all()
+    search = dict(k=10, nprobe=2, ncandidates=32, cell_cap=64, max_candidates=256,
+                  stage1_refine=True)
+    pg, sg = gpu.search_Q_batch(Q, **search)
+    pc, sc = cpu.search_Q_batch(Q, **search)
+    shared = 0
+    for r in range(4):
+        a = dict(zip(pg[r].tolist(), sg[r].tolist()))
+        b = dict(zip(pc[r].tolist(), sc[r].tolist()))
+        for pid in a.keys() & b.keys():
+            assert abs(a[pid] - b[pid]) <= TOL
+        shared += len(a.keys() & b.keys())
+    assert shared >= 0.8 * pg.size
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("S", [128, 160, 512])
+def test_attention_products_on_the_card(cuda_device, dtype, S):
+    """BERT's materialized attention on the card: bf16 and fp16 activations
+    multiply in their dtype into fp32, within one bf16 step of the upcast
+    formulation, gradients within 1e-2 x their max; fp32 activations take
+    the upcast formulation itself (1e-4)."""
+    from colbert_torch.models.bert import _attention, upcast_attention
+
+    rng = np.random.default_rng(S)
+    B = 4
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, 768)).astype(np.float32))
+               .to(cuda_device, dtype).requires_grad_(True) for _ in range(3))
+    mask = np.arange(S)[None] < np.array([S, S // 2, S - 3, 1])[:, None]
+    bias = torch.from_numpy(np.where(mask, 0.0, np.finfo(np.float32).min)
+                            .astype(np.float32)).to(cuda_device)[:, None, None, :]
+    w = torch.randn(B, S, 768, generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    got = _attention(q, k, v, bias, 12)
+    want = upcast_attention(q, k, v, bias, 12)
+    assert got.dtype == dtype and got.shape == q.shape
+    err = (got.float() - want.float()).abs().detach()
+    if dtype == torch.float32:
+        assert float(err.max()) <= TOL
+    else:
+        assert bool((err <= 8e-3 * want.float().abs().clamp(min=1.0)).all())
+    g_got = torch.autograd.grad((got.float() * w).sum(), (q, k, v))
+    g_want = torch.autograd.grad((want.float() * w).sum(), (q, k, v))
+    for a, b in zip(g_got, g_want):
+        assert a.dtype == dtype
+        assert float((a - b).float().abs().max()) <= 1e-2 * float(b.float().abs().max())
 
 
 # -- the life of a live index on the card --------------------------------------

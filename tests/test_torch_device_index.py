@@ -154,3 +154,57 @@ def test_probe_compensation_rejects_zero_saturation():
         probe_compensation(4, 0.5, saturate=0.0)
     assert probe_compensation(4, 0.01, saturate=0.05) == 1
     assert probe_compensation(1, 0.5) == 0
+
+
+def _synthetic_index_kwargs(seed: int = 7, P: int = 60, K: int = 48, nbits: int = 2):
+    """A small index made from a seed, with zero-doclen passages among the
+    real ones: random unit centroids and codes, zero residuals, an IVF of
+    the pids holding each code."""
+    rng = np.random.default_rng(seed)
+    doclens = rng.integers(1, 40, P)
+    doclens[[3, 17, 18, P - 1]] = 0
+    codes = rng.integers(0, K, int(doclens.sum())).astype(np.uint32)
+    cent = rng.standard_normal((K, 128)).astype(np.float32)
+    cent /= np.linalg.norm(cent, axis=1, keepdims=True)
+    pid_of = np.repeat(np.arange(P), doclens)
+    cells = [np.unique(pid_of[codes == c]) for c in range(K)]
+    return dict(centroids=cent, codes=codes,
+                residuals=np.zeros((len(codes), 128 * nbits // 8), np.uint8),
+                ivf=np.concatenate(cells).astype(np.int32),
+                ivf_lengths=np.array([len(c) for c in cells], np.int64),
+                doclens=doclens, bucket_weights=np.linspace(-0.1, 0.1, 1 << nbits,
+                                                            dtype=np.float32),
+                nbits=nbits)
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("columns", [None, 7, 1])
+def test_approx_maxsim_matches_jax(B, columns):
+    """The refine's batched chunk passes against JAX's ``_approx_maxsim``
+    query by query on the same index arrays: a 40-wide candidate window
+    with sentinel pids and zero-doclen passages, in one chunk (the default
+    cap), in chunks of 7 columns (40 is no multiple of 7) and of 1."""
+    from colbert_tpu.retrieval import device_index as jdi
+    from colbert_torch.retrieval import device_index as tdi
+
+    kw = _synthetic_index_kwargs()
+    j = JDeviceIndex.build(**kw)
+    t = DeviceIndex.build(device="cpu", **kw)
+    rng = np.random.default_rng(B)
+    Q = rng.standard_normal((B, 32, 128)).astype(np.float32)
+    Q /= np.linalg.norm(Q, axis=-1, keepdims=True)
+    P = len(kw["doclens"])
+    pids = rng.integers(0, P + 1, (B, 40))
+    pids[:, [0, 5]] = P                        # sentinel
+    pids[:, [2, 9]] = [3, 17]                  # zero doclen
+    cap = {} if columns is None else {
+        "chunk_bytes": columns * tdi.refine_column_bytes(B, t.max_doclen, 32)}
+    got = tdi._approx_maxsim(t, torch.from_numpy(Q), torch.from_numpy(pids), **cap).numpy()
+    for b in range(B):
+        want = jdi._approx_maxsim(
+            jnp.asarray(Q[b]), j.centroids, j.codes, j.emb_offsets[pids[b]],
+            j.doclens[pids[b]], max_doclen=j.max_doclen)
+        np.testing.assert_allclose(got[b], np.asarray(want), atol=TOL, rtol=0)
+    assert (got[:, [0, 5, 2, 9]] == 0).all()
+    real = (pids < P) & (kw["doclens"][np.minimum(pids, P - 1)] > 0)
+    assert (got[real] != 0).all()
