@@ -19,10 +19,17 @@
    dim 128 and Lq <= 32; ``simt``, fp32 FMAs, otherwise).
 3. Serves ``Searcher.search_batch`` end to end: a synthetic 141,431-passage
    index (avg doclen 110, dim 128, nbits 2, 32,768 partitions by the
-   planner), a random-init ColBERT at bert-base width in bf16, batches of 32
-   queries at k=10 plus one ``search_stream`` pass. Prints QPS, per-stage
-   times and a profiler view of one batch, checks that every stage-2
-   launch took the ``mma`` kernel, and re-scores one batch with the plain
+   planner), a random-init ColBERT at bert-base width in bf16, 16 batches
+   of 32 queries at k=10 plus one ``search_stream`` pass, each batch one
+   captured program's replay. Against the eager entry on the same batches,
+   in turns (graphed, eager, eager, graphed): QPS of ``search_batch`` and
+   ``search_stream``, results equal up to ties at 1e-4, a profiled batch
+   each way (device busy share); the B=32 program's replay timed with CUDA
+   events, the host's time to launch it, its capture seconds and device
+   memory, and one launch under
+   ``torch.cuda.set_sync_debug_mode("error")``. Prints per-stage times
+   (traced, so eager), checks that every stage-2 launch took the ``mma``
+   kernel and was counted, and re-scores one batch with the plain
    stage-2 on the card (pids equal up to ties, scores to 1e-4). On that
    batch's own stage-2 inputs it times the ``mma`` kernel, PR 1's ``simt``
    kernel (through the wrapper's private launcher) and the plain version
@@ -38,7 +45,8 @@
      ``BatchingSearcher`` (max_batch 32, max_wait 5 ms, two batches in
      flight); every future resolves, each result equals a direct
      ``search_batch`` of the batch it was served in (up to ties, 1e-4),
-     fewer batches than queries, none above 32; prints queries/s;
+     fewer batches than queries, none above 32, its batches replayed as
+     captured programs from the batcher's thread; prints queries/s;
    - ``[serve-http]``: ``make_server`` on a free port, 128 concurrent
      ``POST /search`` from a thread pool plus one ``/search_batch``,
      ``/health`` and ``/stats``; every reply 200 and equal to direct search
@@ -221,6 +229,7 @@ PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 N_PASSAGES = 141_431
 BATCH = 32
 N_BATCHES = 3
+SERVE_BATCHES = 16          # [serve]: batches of each pass, captured and eager
 BUILD_PASSAGES = 20_000
 BUILD_MEAN_WORDS = 450
 IN_SITU_TOL = 5e-4          # tests/test_flash_attention.py:72
@@ -553,16 +562,12 @@ def main_path(device, *, n_passages: int, bert_cfg, index_dir: str,
 
     fm.stage2_maxsim.launches = 0
     fm.stage2_maxsim.variant_launches.update(mma=0, simt=0)
-    t0 = time.perf_counter()
-    results = [searcher.search_batch(b, k=10) for b in batches[1:]]
-    dt = time.perf_counter() - t0
-    qps = batch * n_batches / dt
-    t0 = time.perf_counter()
-    streamed = list(searcher.search_stream(batches[1:], k=10))
-    dt_stream = time.perf_counter() - t0
+    results, dt, streamed, dt_stream = serve_pass(searcher, batches[1:])
     launches = fm.stage2_maxsim.launches
     by_variant = dict(fm.stage2_maxsim.variant_launches)
-    print(f"[serve] search_batch: {n_batches} x B={batch} in {dt:.4f}s -> "
+    qps = batch * n_batches / dt
+    route = "captured program" if device.type == "cuda" else "eager (CPU)"
+    print(f"[serve] search_batch ({route}): {n_batches} x B={batch} in {dt:.4f}s -> "
           f"QPS {qps:.2f}; search_stream: {dt_stream:.4f}s -> QPS "
           f"{batch * n_batches / dt_stream:.2f}; stage2 kernel launches {launches} "
           f"(by kernel {by_variant})")
@@ -574,6 +579,8 @@ def main_path(device, *, n_passages: int, bert_cfg, index_dir: str,
         check(bool((np.diff(s, axis=1) <= 1e-6).all()), "scores not descending")
         why = agree_up_to_ties(p, s, p2, s2, TOL)
         check(why is None, f"search_stream differs from search_batch: {why}")
+    program = program_phase(searcher, batches, results, (dt, dt_stream)) \
+        if device.type == "cuda" else {}
 
     tracer = Tracer()
     searcher.tracer = tracer
@@ -584,8 +591,6 @@ def main_path(device, *, n_passages: int, bert_cfg, index_dir: str,
     print("[serve] per-stage ms per batch (traced, device synchronized per stage): "
           + json.dumps({k: round(v, 4) for k, v in stages.items()}))
 
-    if device.type == "cuda":
-        print("[profile] " + json.dumps(profile_batch(searcher, batches[1])))
 
     # re-score one batch with the plain stage-2 on the card, keeping its
     # stage-2 inputs for the kernel timing
@@ -606,7 +611,8 @@ def main_path(device, *, n_passages: int, bert_cfg, index_dir: str,
     kernel_fn = di.stage2_maxsim
     di.stage2_maxsim, di._approx_maxsim = plain_recording, refine_recording
     try:
-        pp, sp = searcher.search_batch(batches[1], k=10)
+        with eager_route(searcher):  # a captured program never re-enters Python
+            pp, sp = searcher.search_batch(batches[1], k=10)
     finally:
         di.stage2_maxsim, di._approx_maxsim = kernel_fn, refine_fn
     why = agree_up_to_ties(pk, sk, pp, sp, TOL)
@@ -619,7 +625,101 @@ def main_path(device, *, n_passages: int, bert_cfg, index_dir: str,
         timing.update(refine_check(*recorded["refine"]))
     return dict(qps=qps, stream_qps=batch * n_batches / dt_stream,
                 launches=launches, by_variant=by_variant, stages_ms=stages,
-                rescore_err=err, encoder=enc, searcher=searcher, n_words=n_words, **timing)
+                rescore_err=err, encoder=enc, searcher=searcher, n_words=n_words,
+                program=program, **timing)
+
+
+def serve_pass(searcher, batches) -> tuple:
+    """Every batch through ``search_batch``, then all of them through
+    ``search_stream`` -> (results, seconds, streamed results, seconds)."""
+    t0 = time.perf_counter()
+    results = [searcher.search_batch(b, k=10) for b in batches]
+    dt = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    streamed = list(searcher.search_stream(batches, k=10))
+    return results, dt, streamed, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def eager_route(searcher):
+    """The searcher's index launching every batch through the eager entry
+    (``DeviceIndex._search_tokens_eager``), the yardstick of the captured
+    route: the same funnel op by op."""
+    dix = searcher.device_index
+    dix.search_tokens_batch_async = dix._search_tokens_eager
+    try:
+        yield
+    finally:
+        del dix.search_tokens_batch_async
+
+
+def program_phase(searcher, batches, graphed, graphed_s) -> dict:
+    """[serve] on the card: the captured route against the eager entry on
+    the same batches, in turns (graphed, eager, eager, graphed) through
+    ``search_batch`` and ``search_stream``: QPS, results equal up to ties at
+    TOL; the B=32 program's replay timed with CUDA events; capture seconds,
+    programs and the device memory they hold; one launch under
+    ``set_sync_debug_mode("error")``; a profiled batch each way."""
+    import torch
+
+    queries = batches[1:]
+    n = sum(len(b) for b in queries)
+    dix = searcher.device_index
+    with eager_route(searcher):
+        e1 = serve_pass(searcher, queries)
+        e2 = serve_pass(searcher, queries)
+    g2 = serve_pass(searcher, queries)
+    turns = {"graphed": [graphed_s, (g2[1], g2[3])], "eager": [(e1[1], e1[3]), (e2[1], e2[3])]}
+    for (p, s), (pe, se), (p2, s2) in zip(graphed, e1[0], g2[0]):
+        why = agree_up_to_ties(p, s, pe, se, TOL)
+        check(why is None, f"serve: the captured program differs from the eager entry: {why}")
+        why = agree_up_to_ties(p, s, p2, s2, TOL)
+        check(why is None, f"serve: two passes of the captured program differ: {why}")
+    qps = {route: [[round(n / t, 2) for t in pair] for pair in pairs]
+           for route, pairs in turns.items()}
+
+    ids, mask = searcher.encoder.tensorize_queries(queries[0])
+    kw = searcher._search_kwargs(10)
+    launch_ms = []  # the host's time to launch a tokenized batch
+    for _ in range(10):
+        t0 = time.perf_counter()
+        pending = dix.search_tokens_batch_async(searcher.encoder, ids, mask, **kw)
+        launch_ms.append((time.perf_counter() - t0) * 1e3)
+        dix.finalize(pending)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = dix.search_tokens_batch_async(searcher.encoder, ids, mask, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    why = agree_up_to_ties(*dix.finalize(pending), *graphed[0], TOL)
+    check(why is None, f"serve: the launch under sync debug mode differs: {why}")
+
+    prog = next(p for p in dix.programs.programs() if p.inputs[0].shape[0] == len(queries[0]))
+    replay = [time_ms(prog.graph.replay, 20) for _ in range(2)]
+    stats = dix.programs.stats()
+    graphed_prof = profile_batch(searcher, queries[0])
+    with eager_route(searcher):
+        eager_prof = profile_batch(searcher, queries[0])
+    print(f"[serve] captured program vs eager entry, {len(queries)} batches of "
+          f"{len(queries[0])}, QPS [search_batch, search_stream] in turns (graphed, eager, "
+          f"eager, graphed): {json.dumps(qps)}; results equal up to ties at {TOL}; "
+          f"B={len(queries[0])} replay_ms={replay[0]:.4f},{replay[1]:.4f} (CUDA events), "
+          f"launch host ms median {float(np.median(launch_ms)):.4f} of 10; "
+          f"programs {stats['held']} held, {stats['built']} built, capture "
+          f"{stats['capture_s']:.3f}s, pool {stats['pool_bytes'] / 2**20:.1f} MiB, replays "
+          f"{stats['replays']}; one launch under sync debug mode 'error' passed; device busy "
+          f"share graphed {graphed_prof['busy_share']} ({graphed_prof['device_busy_ms']:.3f} of "
+          f"{graphed_prof['wall_ms']:.3f} ms), eager {eager_prof['busy_share']} "
+          f"({eager_prof['device_busy_ms']:.3f} of {eager_prof['wall_ms']:.3f} ms) on "
+          f"{card_line()}")
+    print("[profile] graphed batch " + json.dumps(graphed_prof))
+    print("[profile] eager batch " + json.dumps(eager_prof))
+    return dict(qps=qps, replay_ms=replay, launch_host_ms=float(np.median(launch_ms)),
+                programs=stats,
+                busy_share={"graphed": graphed_prof["busy_share"],
+                            "eager": eager_prof["busy_share"]},
+                wall_ms={"graphed": graphed_prof["wall_ms"], "eager": eager_prof["wall_ms"]})
 
 
 def refine_check(index, Q, pids) -> dict:
@@ -1176,6 +1276,16 @@ def check_stage2_all_mma(device, counts: dict, phase: str) -> None:
               and counts["simt"] == 0, f"{phase}: stage-2 launches by kernel {counts}")
 
 
+def program_replays(searcher) -> int:
+    return searcher.device_index.programs.stats()["replays"]
+
+
+def check_through_programs(searcher, replays: int, phase: str) -> None:
+    """On the card a serving front's batches run as captured programs."""
+    if searcher.device.type == "cuda":
+        check(replays > 0, f"{phase}: no captured program was replayed")
+
+
 @contextlib.contextmanager
 def recorded_batches(searcher):
     """Record the queries of every ``launch_search`` on ``searcher`` while
@@ -1223,6 +1333,7 @@ def serve_batcher(searcher, n_words: int) -> dict:
 
     queries = unique_queries(11, BATCHER_QUERIES, n_words)
     results, errors = {}, []
+    replays = program_replays(searcher)
     reset_counts()
     with recorded_batches(searcher) as batches:
         batcher = BatchingSearcher(searcher, max_batch=BATCH, max_wait_ms=5, max_inflight=2)
@@ -1243,10 +1354,12 @@ def serve_batcher(searcher, n_words: int) -> dict:
         finally:
             batcher.close()
     counts = stage2_counts()
+    replays = program_replays(searcher) - replays
     print(f"[serve-batcher] {len(queries)} queries from {BATCHER_THREADS} threads in {dt:.4f}s "
           f"-> {len(queries) / dt:.2f} queries/s in process; stats {stats}; batch sizes "
-          f"{[len(b) for b in batches]}; stage-2 launches {counts}; failed futures "
-          f"{len(errors)}")
+          f"{[len(b) for b in batches]}; stage-2 launches {counts}; program replays "
+          f"{replays}; failed futures {len(errors)}")
+    check_through_programs(searcher, replays, "serve-batcher")
     check(not errors, f"serve-batcher: failed futures {errors[:3]}")
     check(len(results) == len(queries), "serve-batcher: a query got no result")
     check(stats["queries"] == len(queries) and stats["batches"] < len(queries)
@@ -1291,6 +1404,7 @@ def serve_http(searcher, n_words: int) -> dict:
 
     queries = unique_queries(12, HTTP_REQUESTS + 8, n_words)
     single, multi = queries[:HTTP_REQUESTS], queries[HTTP_REQUESTS:]
+    replays = program_replays(searcher)
     reset_counts()
     with recorded_batches(searcher) as batches:
         server = make_server(searcher, port=0, max_batch=BATCH, max_wait_ms=5, max_inflight=2)
@@ -1311,12 +1425,15 @@ def serve_http(searcher, n_words: int) -> dict:
             server.batcher.close()
             thread.join(timeout=60)
     counts = stage2_counts()
+    replays = program_replays(searcher) - replays
     codes = [r[0] for r in replies] + [batch_reply[0], health[0], stats[0]]
     failed = [(c, r) for c, r in replies + [batch_reply, health, stats] if c != 200]
     print(f"[serve-http] {len(single)} concurrent POST /search in {dt:.4f}s -> "
           f"{len(single) / dt:.2f} requests/s (information: stdlib HTTP bounds it); "
           f"/health {health[1]}; /stats {stats[1]}; batch sizes {[len(b) for b in batches]}; "
-          f"stage-2 launches {counts}; non-200 replies {len(failed)}")
+          f"stage-2 launches {counts}; program replays {replays}; non-200 replies "
+          f"{len(failed)}")
+    check_through_programs(searcher, replays, "serve-http")
     check(not failed, f"serve-http: failed requests {failed[:3]}")
     check(codes.count(200) == len(codes), "serve-http: a reply was not 200")
     check(health[1]["n_passages"] == len(searcher.doclens), f"serve-http: /health {health[1]}")
@@ -1370,7 +1487,8 @@ def tune_phase(searcher, n_words: int) -> dict:
     res = tune_operating_point(searcher, queries, k=10, time_reps=2, balance_caps=(1024, 2048))
     dt_tune = time.perf_counter() - t0
     print(f"[tune] tune_operating_point: {len(res.table)} points in {dt_tune:.2f}s (random "
-          f"weights on a synthetic index: recall is information only)\n{res}")
+          f"weights on a synthetic index: recall is information only); captured programs "
+          f"{searcher.device_index.programs.stats()}\n{res}")
     check(knobs() == before, f"tune: knobs not restored: {knobs()} vs {before}")
     check(all(t.ms_per_batch and np.isfinite(t.ms_per_batch) for t in res.table),
           "tune: a point was not timed")
@@ -2119,13 +2237,22 @@ def train_phase(device, *, bert_cfg, n_passages: int = TRAIN_PASSAGES,
         return Q
 
     reset_counts()
+    results = [searcher.search_batch(queries[i:i + BATCH], k=10)
+               for i in range(0, len(queries), BATCH)]
+    counts = stage2_counts()
+    # the same batches through the eager entry, its query encode recorded:
+    # the embeddings are the trained model's, and the served results equal
+    # these up to ties
     enc.encode_query_tokens = recording
     try:
-        results = [searcher.search_batch(queries[i:i + BATCH], k=10)
-                   for i in range(0, len(queries), BATCH)]
+        with eager_route(searcher):
+            eager = [searcher.search_batch(queries[i:i + BATCH], k=10)
+                     for i in range(0, len(queries), BATCH)]
     finally:
         del enc.encode_query_tokens
-    counts = stage2_counts()
+    for (p, s), (pe, se) in zip(results, eager):
+        why = agree_up_to_ties(p, s, pe, se, TOL)
+        check(why is None, f"train: the served results differ from the eager entry's: {why}")
     initial = ColBERT(bert_cfg, 128)
     initial.load_state_dict(init_sd)
     initial = initial.to(device)
@@ -2144,7 +2271,8 @@ def train_phase(device, *, bert_cfg, n_passages: int = TRAIN_PASSAGES,
     s1 = float((p[:, 0] == pids).mean())
     s10 = float((p == pids[:, None]).any(axis=1).mean())
     print(f"[train] index of {n_passages} passages built in {build_s:.2f}s with the trained "
-          f"encoder; {len(queries)} prefix queries: the searcher's query embeddings equal "
+          f"encoder; {len(queries)} prefix queries, served results equal the eager entry's "
+          f"up to ties; the searcher's query embeddings equal "
           f"the trained model's forward {same}, differ from the initial model's {moved}; "
           f"stage-2 launches {counts}; self-retrieval success@1 {s1:.3f} success@10 "
           f"{s10:.3f} (information)")
@@ -2189,9 +2317,9 @@ def mesh_step_checks(model, tokenizer, triples, device) -> dict:
     each mesh of TRAIN_MESHES against the same step on one device: loss
     1e-5 relative, every gradient entry within 1e-4 x its tensor's max |g|
     + 1e-7, every parameter after the update within 1e-2 x lr (entries
-    whose one-device gradient is nonzero and below 1e-6, where Adam's first
-    update lr * g / (|g| + 1e-8) follows the gradient's rounding, are
-    counted apart as in :func:`step_card_vs_cpu`, and held to lr); then
+    whose gradient is below 1e-6 on both sides and nonzero on at least one,
+    where Adam's first update lr * g / (|g| + 1e-8) follows the gradient's
+    rounding, are counted apart and held to lr); then
     the dp x tp step inside a one-process NCCL group (gloo on the CPU),
     whose collectives run at world size 1, against the step without a
     group: within 1e-6."""
@@ -2221,8 +2349,9 @@ def mesh_step_checks(model, tokenizer, triples, device) -> dict:
         grad_ratio = max(float((a - b).abs().max()) / (1e-4 * float(b.abs().max()) + 1e-7)
                          for a, b in zip(g, g1))
         param_err, apart_err, apart = 0.0, 0.0, 0
-        for a, b, gb in zip(p, p1, g1):
-            tiny = (gb.abs() < 1e-6) & (gb != 0)
+        for a, b, ga, gb in zip(p, p1, g, g1):
+            # below 1e-6 on both sides and nonzero on one (ROADMAP C1)
+            tiny = (gb.abs() < 1e-6) & (ga.abs() < 1e-6) & ((gb != 0) | (ga != 0))
             diff = (a - b).abs()
             apart += int(tiny.sum())
             param_err = max(param_err, float(diff[~tiny].max()) if (~tiny).any() else 0.0)
@@ -2231,7 +2360,7 @@ def mesh_step_checks(model, tokenizer, triples, device) -> dict:
               f"fp32, {len(triples)} triples: loss {loss:.8f} vs {loss1:.8f} (rel "
               f"{loss_rel:.3e}, limit 1e-5); max grad err / (1e-4 max|g| + 1e-7) "
               f"{grad_ratio:.3e} (limit 1); max param err {param_err:.3e} (limit "
-              f"{1e-2 * TRAIN_LR:.1e}); {apart} entries with 0 < |g| < 1e-6: max err "
+              f"{1e-2 * TRAIN_LR:.1e}); {apart} entries below 1e-6, nonzero on a side: max err "
               f"{apart_err:.3e} (limit {TRAIN_LR:.1e})")
         check(loss_rel <= 1e-5, f"train-mesh {name}: loss {loss_rel}")
         check(grad_ratio <= 1.0, f"train-mesh {name}: gradient {grad_ratio}")
@@ -2850,7 +2979,7 @@ def main() -> int:
     index_dir = os.path.join(BUILD_DIR, "smoke_index")
     try:
         mp = main_path(device, n_passages=N_PASSAGES, bert_cfg=BertConfig(),
-                       index_dir=index_dir)
+                       index_dir=index_dir, n_batches=SERVE_BATCHES)
         check(mp["launches"] > 0 and mp["by_variant"] == {"mma": mp["launches"], "simt": 0},
               f"stage-2 launches on the main path by kernel {mp['by_variant']}, expected all mma")
         searcher = mp.pop("searcher")
@@ -2906,7 +3035,7 @@ def main() -> int:
     bn = bench_phase(device, BUILD_DIR)
 
     print(json.dumps({"qps": mp["qps"], "stream_qps": mp["stream_qps"],
-                      "stages_ms": mp["stages_ms"],
+                      "stages_ms": mp["stages_ms"], "program": mp["program"],
                       "refine": {k[7:]: mp[k] for k in mp if k.startswith("refine_")},
                       "attention": attn,
                       "build_passages_per_s": bp["passages_per_s"],

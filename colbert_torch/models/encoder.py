@@ -466,6 +466,15 @@ class ColBERTEncoder:
                           dtype_name=self.config.activation_dtype)
         return Q[:ids.shape[0]]
 
+    def encode_query_device(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """Token ids and mask already on the encoder's device -> ``(N, L,
+        dim)`` fp32 embeddings, with no host work: the query encode of a
+        captured serving program, which reads its static id and mask
+        buffers (:mod:`colbert_torch.retrieval.program` fills them from
+        pinned staging before each replay)."""
+        return self.model.forward_normalized(ids, mask, torch.ones_like(mask),
+                                             dtype_name=self.config.activation_dtype)
+
     def encode_queries_device(self, queries: Sequence[str]) -> torch.Tensor:
         """-> ``(N, query_maxlen, dim)`` fp32 query embeddings on the device."""
         return self.encode_query_tokens(*self.tensorize_queries(list(queries)))

@@ -31,7 +31,9 @@ here. ``hd`` is a multiple of 8 up to 128; inputs are fp32, bf16 or fp16.
 takes BertLayer's ``(B, S, H*hd)`` projections and returns that layout;
 the kernels read them through strides, so no head transpose runs. Both
 count every launch in ``flash_attention.launches`` and, by variant, in
-``flash_attention.variant_launches``. CUDA tensors go through a kernel (or
+``flash_attention.variant_launches`` (a captured program's replays count
+the launches its capture recorded, :mod:`colbert_torch.retrieval.program`).
+CUDA tensors go through a kernel (or
 raise); CPU tensors through :func:`flash_attention_plain`, the
 materialized fp32 softmax of the same function. The two differ only on a
 batch row whose every key is a pad (the kernels write 0 there, as the

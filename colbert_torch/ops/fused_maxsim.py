@@ -28,7 +28,9 @@ in the ``mma`` kernel, chosen for its fragment layout.
 ``stage2_maxsim`` launches a kernel for CUDA tensors and uses
 :func:`stage2_maxsim_plain` only for CPU tensors. ``stage2_maxsim.launches``
 counts kernel launches, ``stage2_maxsim.variant_launches`` counts them by
-kernel.
+kernel. A captured serving program (:mod:`colbert_torch.retrieval.program`)
+replays its kernels without entering this wrapper: the launches its capture
+recorded are taken back out of the counts and added again at each replay.
 """
 
 from __future__ import annotations

@@ -1,24 +1,34 @@
 """Device-resident index and batched search (port of ``colbert_tpu.retrieval.device_index``).
 
-The whole index lives on the device and a query batch runs as one sequence
-of launches with no host round trip until the results are read:
+The whole index lives on the device and a query batch runs as one program
+with no host round trip until the results are read:
 
-    probe matmul + top-nprobe -> IVF cell slices -> pid dedup sort and
-    per-pid stage-1 bound -> optional full-centroid refine -> top
-    ncandidates -> stage-2 fused decompress + MaxSim (the CUDA kernel of
-    :mod:`colbert_torch.ops.fused_maxsim`) -> final top-k
+    query BERT encode -> probe matmul + top-nprobe -> IVF cell slices ->
+    pid dedup sort and per-pid stage-1 bound -> optional full-centroid
+    refine -> top ncandidates -> stage-2 fused decompress + MaxSim (the CUDA
+    kernel of :mod:`colbert_torch.ops.fused_maxsim`) -> final top-k
 
-The funnel is written for the batch at once (a batch dimension instead of
-``vmap``). Differences from the JAX program, none of which changes what is
-computed:
+On a card the program is a captured CUDA graph per static key
+(:mod:`colbert_torch.retrieval.program`), the counterpart of the JAX
+package's jitted ``_search_tokens`` / ``_search_batch``: a launch copies
+the inputs in, replays the graph and copies the results out without
+waiting on the device. Three cases run the same funnel eagerly, op by op,
+instead: CPU tensors (the tests), a ``tracer`` (its per-stage times need a
+synchronize at each stage end; the JAX program has no per-stage times
+either) and an encoder with a mesh attached (its shards run on several
+devices). Nothing else runs eagerly, and a capture or replay that fails
+raises.
 
-- the dedup sort is ONE stable sort of an int64 key
-  ``((b * (P + 1) + pid) << qbits) | q`` over the whole batch; the per-(pid,
-  q) maxima and the per-pid sums are segmented reductions
-  (``scatter_reduce`` / ``index_add_``) instead of the JAX package's
-  score-descending two-key sort and cumsum differences, so there is no
-  ``> 2^26``-pid three-key branch, and stage-1 sums carry no cancellation
-  error (they differ from the JAX ones at the ~1e-6 relative level);
+Every shape in the funnel is static, as in the JAX program: stage 1 keeps
+all ``E = Lq*nprobe*cell_cap`` entries per query and sorts them by (pid, q,
+score descending), the per-pid sums are cumsum differences between run
+heads. The funnel is written for the batch at once (a batch dimension
+instead of ``vmap``). Differences from the JAX program, none of which
+changes what is computed:
+
+- the (pid, q) key and the score's order share one int64 sort key (two
+  stable sorts past ``2^26`` pids at Lq 32) where JAX sorts two keys, or
+  three past that size;
 - probe scores are taken against the codec centroids and gathered to the
   balanced probe table, so duplicated sub-cells tie exactly, and ties at the
   top-nprobe cut go to the lowest probe-table index as in ``lax.top_k``;
@@ -29,6 +39,7 @@ computed:
 from __future__ import annotations
 
 import logging
+import weakref
 from dataclasses import dataclass, field
 from typing import Tuple
 
@@ -36,6 +47,7 @@ import numpy as np
 import torch
 
 from colbert_torch.ops.fused_maxsim import stage2_maxsim
+from colbert_torch.retrieval.program import Program, ProgramCache, tensor_signature
 from colbert_torch.utils.build import resolve_device
 from colbert_torch.utils.tracing import device_phase as _phase
 
@@ -109,12 +121,16 @@ def probe_compensation(dup_max: int, split_mass: float,
 
 @dataclass
 class PendingSearch:
-    """A launched batch search: device tensors not yet read back."""
+    """A launched batch search: tensors not yet read back. A captured
+    program's launch owns pinned host tensors that are readable once
+    ``ready`` (a CUDA event) has completed; an eager launch holds the device
+    tensors themselves (``ready`` None)."""
 
     pids: torch.Tensor
     scores: torch.Tensor
     overflow: torch.Tensor
     k: int
+    ready: torch.cuda.Event | None = None
 
 
 def _stream_chunks(index_path: str, N: int, nbytes: int, pad_rows: int,
@@ -174,6 +190,8 @@ class DeviceIndex:
     probe_dup_max: int = 1
     probe_split_mass: float = 0.0
     overflow_candidates: int = field(default=0, compare=False)
+    # captured serving programs (see colbert_torch.retrieval.program)
+    programs: ProgramCache = field(default_factory=ProgramCache, compare=False, repr=False)
 
     @property
     def device(self) -> torch.device:
@@ -285,6 +303,7 @@ class DeviceIndex:
             origin, dtype=torch.int64).to(dev)
         self.ivf_lengths = torch.as_tensor(lengths, dtype=torch.int64).to(dev)
         self.ivf_offsets = torch.as_tensor(offs, dtype=torch.int64).to(dev)
+        self.programs.clear()  # they read the replaced probe tables
 
     def compensated_nprobe(self, nprobe: int, *, saturate: float = 0.05) -> int:
         return nprobe + probe_compensation(
@@ -298,27 +317,22 @@ class DeviceIndex:
         return max_candidates, ncand, min(k, ncand)
 
     def search_Q_batch_async(
-        self, Q: torch.Tensor, *, k: int, nprobe: int, ncandidates: int,
+        self, Q, *, k: int, nprobe: int, ncandidates: int,
         cell_cap: int = 1024, max_candidates: int = 8192,
         centroid_threshold: float | None = None,
         stage1_refine: bool = True, refine_width: int = 4, tracer=None,
     ) -> PendingSearch:
         """Launch the search of pre-encoded queries ``Q (B, Lq, dim)``
-        without reading results back. ``tracer`` (a
-        :class:`~colbert_torch.utils.tracing.Tracer`) times each stage,
-        synchronizing the device at stage ends."""
-        Q = torch.as_tensor(Q, dtype=torch.float32).to(self.device).contiguous()
-        mc, ncand, k_eff = self._clamp(Q.shape[1], nprobe, cell_cap,
-                                       max_candidates, ncandidates, k)
-        with torch.no_grad():
-            pids, scores, overflow = _search(
-                self, Q, k=k_eff, nprobe=nprobe, ncandidates=ncand,
-                cell_cap=cell_cap, max_candidates=mc,
-                centroid_threshold=centroid_threshold,
-                stage1_refine=stage1_refine, refine_width=refine_width,
-                tracer=tracer,
-            )
-        return PendingSearch(pids=pids, scores=scores, overflow=overflow, k=k)
+        without reading results back: the captured program of this key on a
+        card (the JAX package's ``_search_batch``); eagerly on the CPU or
+        with a ``tracer`` (a :class:`~colbert_torch.utils.tracing.Tracer`,
+        which times each stage, synchronizing the device at stage ends)."""
+        kw = dict(nprobe=nprobe, ncandidates=ncandidates, cell_cap=cell_cap,
+                  max_candidates=max_candidates, centroid_threshold=centroid_threshold,
+                  stage1_refine=stage1_refine, refine_width=refine_width)
+        if self.device.type == "cpu" or tracer is not None:
+            return self._search_Q_eager(Q, k=k, tracer=tracer, **kw)
+        return self._program_search_Q(Q, k=k, **kw)
 
     def search_Q_batch(self, Q, *, k: int, **kw) -> Tuple[np.ndarray, np.ndarray]:
         """Pre-encoded queries (B, Lq, dim) -> (pids (B, k), scores (B, k))."""
@@ -329,18 +343,105 @@ class DeviceIndex:
         *, k: int, tracer=None, **kw,
     ) -> PendingSearch:
         """Query token ids -> launched search: the query BERT encode
-        (``encoder.encode_query_tokens``) followed by the funnel."""
-        with _phase(tracer, "encode"):
-            Q = encoder.encode_query_tokens(input_ids, attention_mask)
-        return self.search_Q_batch_async(Q, k=k, tracer=tracer, **kw)
+        followed by the funnel, as one captured program per key on a card
+        (the JAX package's ``_search_tokens``). Eager in three cases only:
+        CPU tensors, a ``tracer``, and an encoder with a mesh attached."""
+        if self.device.type == "cpu" or tracer is not None or encoder.mesh is not None:
+            return self._search_tokens_eager(encoder, input_ids, attention_mask, k=k,
+                                             tracer=tracer, **kw)
+        return self._program_search_tokens(encoder, input_ids, attention_mask, k=k, **kw)
 
     def search_tokens_batch(self, encoder, input_ids, attention_mask, *, k: int,
                             **kw) -> Tuple[np.ndarray, np.ndarray]:
         return self.finalize(self.search_tokens_batch_async(
             encoder, input_ids, attention_mask, k=k, **kw))
 
+    # --- the two routes ---------------------------------------------------
+
+    def _search_Q_eager(self, Q, *, k: int, tracer=None, **kw) -> PendingSearch:
+        """The funnel op by op (the eager route; also the yardstick the
+        captured route is held against)."""
+        Q = torch.as_tensor(Q, dtype=torch.float32).to(self.device).contiguous()
+        static = self._static_kwargs(Q.shape[1], k, **kw)
+        with torch.no_grad():
+            pids, scores, overflow = _search(self, Q, tracer=tracer, **static)
+        return PendingSearch(pids=pids, scores=scores, overflow=overflow, k=k)
+
+    def _search_tokens_eager(self, encoder, input_ids, attention_mask, *, k: int,
+                             tracer=None, **kw) -> PendingSearch:
+        with _phase(tracer, "encode"):
+            Q = encoder.encode_query_tokens(input_ids, attention_mask)
+        return self._search_Q_eager(Q, k=k, tracer=tracer, **kw)
+
+    def _static_kwargs(self, Lq: int, k: int, *, nprobe, ncandidates, cell_cap=1024,
+                       max_candidates=8192, centroid_threshold=None, stage1_refine=True,
+                       refine_width=4) -> dict:
+        """The knobs as :func:`_search` takes them, budgets clamped (the
+        JAX package's static arguments)."""
+        mc, ncand, k_eff = self._clamp(Lq, nprobe, cell_cap, max_candidates, ncandidates, k)
+        return dict(k=k_eff, nprobe=nprobe, ncandidates=ncand, cell_cap=cell_cap,
+                    max_candidates=mc, centroid_threshold=centroid_threshold,
+                    stage1_refine=stage1_refine, refine_width=refine_width)
+
+    def _signature(self) -> tuple:
+        """What a program bakes in about this index: every tensor it reads
+        (address, shape, dtype) and the scalars it reads."""
+        return tensor_signature([
+            self.centroids, self.split_origin, self.codes, self.residuals, self.ivf,
+            self.ivf_offsets, self.ivf_lengths, self.doclens, self.emb_offsets,
+            self.bucket_weights,
+        ]) + (self.n_passages, self.nbits, self.max_doclen, self.probe_dup_max)
+
+    def _launch(self, key, fn, inputs, shapes, dtypes, k: int) -> PendingSearch:
+        """Launch the program of ``key`` (made from ``fn(index, *inputs)``
+        on its first launch) -> the launch's results. A program holds its
+        index weakly: the index owns its programs, and their device memory
+        goes with the index."""
+        index = weakref.ref(self)
+        prog = self.programs.get(
+            (key, self._signature()),
+            lambda: Program(lambda *a: fn(index(), *a), shapes, dtypes, self.device))
+        (pids, scores, overflow), ready = prog.launch(*inputs)
+        return PendingSearch(pids=pids, scores=scores, overflow=overflow, k=k, ready=ready)
+
+    def _program_search_Q(self, Q, *, k: int, **kw) -> PendingSearch:
+        """Launch the captured program of ``_search_batch``'s key for ``Q``."""
+        if isinstance(Q, torch.Tensor) and Q.device.type == "cuda" and Q.device != self.device:
+            raise ValueError(f"Q is on {Q.device}, the index on {self.device}")
+        B, Lq, dim = Q.shape
+        static = self._static_kwargs(Lq, k, **kw)
+
+        def run(index, q):
+            return _search(index, q, tracer=None, **static)
+
+        return self._launch(("Q", B, Lq, dim, tuple(sorted(static.items()))), run,
+                            [Q], [(B, Lq, dim)], [torch.float32], k)
+
+    def _program_search_tokens(self, encoder, input_ids, attention_mask, *, k: int,
+                               **kw) -> PendingSearch:
+        """Launch the captured program of ``_search_tokens``' key: the query
+        encode reads the program's static id and mask buffers."""
+        model_device = next(encoder.model.parameters()).device
+        if model_device != self.device:
+            raise ValueError(f"the encoder is on {model_device}, the index on {self.device}")
+        B, Lq = input_ids.shape
+        static = self._static_kwargs(Lq, k, **kw)
+
+        def run(index, ids, mask):
+            Q = encoder.encode_query_device(ids, mask)
+            return _search(index, Q, tracer=None, **static)
+
+        key = ("tokens", B, Lq, tuple(sorted(static.items())),
+               encoder.config.activation_dtype, id(encoder.model),
+               tensor_signature(list(encoder.model.parameters())))
+        return self._launch(key, run, (input_ids, attention_mask),
+                            [(B, Lq), (B, Lq)], [torch.int64, torch.bool], k)
+
     def finalize(self, pending: PendingSearch) -> Tuple[np.ndarray, np.ndarray]:
-        """Read a launched search back -> (pids, scores) numpy."""
+        """Read a launched search back -> (pids, scores) numpy: the one
+        place a search waits for the device."""
+        if pending.ready is not None:
+            pending.ready.synchronize()
         return self._postprocess(
             pending.pids.cpu().numpy(), pending.scores.cpu().numpy(),
             pending.overflow.cpu().numpy(), pending.k,
@@ -413,18 +514,48 @@ def _probe_topk(index: DeviceIndex, Q: torch.Tensor, nprobe: int):
     return vals.reshape(B, Lq, nprobe), cells.reshape(B, Lq, nprobe)
 
 
+# the (pid, q) key and the score's 32-bit order share one int64 sort key
+# while ``(P + 1) << qbits`` stays below 2^PACKED_KEY_BITS; past that the
+# two keys take two stable sorts
+PACKED_KEY_BITS = 31
+
+
+def _sort_pid_q_score(key: torch.Tensor, neg_adj: torch.Tensor, qbits: int,
+                      sentinel: int) -> torch.Tensor:
+    """Per row of ``key (B, E)`` (``(pid << qbits) | q``, non-negative) and
+    ``neg_adj (B, E)`` f32: the permutation that sorts by key, then by
+    ``neg_adj`` ascending (the score descending) -> (B, E) int64. Entries
+    tied on both are interchangeable. One sort of the two keys packed into
+    int64 (the float's bits mapped to an order-preserving unsigned int) when
+    they fit, else a stable sort by score and a stable sort by key."""
+    if (sentinel + 1) << qbits < (1 << PACKED_KEY_BITS):
+        bits = neg_adj.view(torch.int32).to(torch.int64)
+        # negative floats order reversed as ints: flip their magnitude bits,
+        # then shift the signed order into [0, 2^32)
+        ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits) + (1 << 31)
+        return torch.sort((key << 32) | ordered, dim=1).indices
+    by_score = torch.sort(neg_adj, dim=1, stable=True).indices
+    by_key = torch.sort(key.gather(1, by_score), dim=1, stable=True).indices
+    return by_score.gather(1, by_key)
+
+
 def _stage1(index: DeviceIndex, probe_scores, cells, *, cell_cap: int,
             centroid_threshold: float | None):
-    """IVF cell reads + pid dedup + the per-pid stage-1 bound.
+    """IVF cell reads + pid dedup + the per-pid stage-1 bound, in the JAX
+    package's static form (``colbert_tpu/retrieval/device_index.py``
+    ``_search_core``): every query keeps all E = Lq*nprobe*cell_cap entries.
 
-    -> (stage1 (B, W) f32 with NEG at empty slots, pids (B, W) int64 with
-    the sentinel at empty slots, n_unique (B,)) where W = Lq*nprobe*cell_cap
-    and each query's unique pids sit in ascending pid order from slot 0.
+    -> (stage1 (B, E) f32, pids (B, E) int64, n_unique (B,)): per query the
+    entries sorted by (pid, q, score descending), sentinel pids last; the
+    head of each pid run holds that pid's stage-1 score, every other
+    position NEG. ``n_unique`` counts the real pid runs.
 
     Per candidate the bound is the sum over query tokens of the best probed
     entry score, unprobed tokens imputed at half their nprobe-th probe score
-    (the midpoint of the WARP/XTR imputation bounds, as in the JAX
-    package)."""
+    (the midpoint of the WARP/XTR imputation bounds). After the sort each
+    (pid, q) run's head carries the run max; the per-pid sums are
+    differences of a per-query fp32 cumsum between pid-run heads, the run
+    ends found by a reversed cummin. No output shape depends on the data."""
     B, Lq, nprobe = probe_scores.shape
     dev = probe_scores.device
     sentinel = index.n_passages
@@ -440,58 +571,39 @@ def _stage1(index: DeviceIndex, probe_scores, cells, *, cell_cap: int,
     ar = torch.arange(cell_cap, device=dev)
     valid = ar < lens[..., None]                                      # (B, ncells, cap)
     idx = base[..., None] + torch.minimum(ar, (lens - 1).clamp(min=0)[..., None])
-    pids = torch.where(valid, index.ivf[idx].to(torch.int64), sentinel)
+    E = ncells * cell_cap
+    pids = torch.where(valid, index.ivf[idx].to(torch.int64), sentinel).reshape(B, E)
 
     impute = probe_scores[:, :, nprobe - 1]                           # (B, Lq)
     adj = (probe_scores - impute[..., None]).reshape(B, ncells)       # >= 0
-    q_of = torch.arange(Lq, device=dev).repeat_interleave(nprobe)     # (ncells,)
-    b_of = torch.arange(B, device=dev)
-
-    # one stable sort of (b, pid, q) keys for the whole batch
+    neg_adj = torch.where(valid, -adj[..., None], -NEG).reshape(B, E)  # invalid last
+    q_of = torch.arange(Lq, device=dev).repeat_interleave(nprobe * cell_cap)  # (E,)
     qbits = max(1, (Lq - 1).bit_length())
-    key = ((b_of[:, None, None] * (sentinel + 1) + pids) << qbits) | q_of[None, :, None]
-    key = key.reshape(-1)
-    entry_adj = torch.where(valid, adj[..., None], NEG).reshape(-1)
-    key_s, perm = torch.sort(key, stable=True)
-    adj_s = entry_adj[perm]
-    M = key_s.shape[0]
-    new_pq = torch.ones(M, dtype=torch.bool, device=dev)
-    new_pq[1:] = key_s[1:] != key_s[:-1]
-    gid = torch.cumsum(new_pq, 0) - 1
-    pq_key = key_s[new_pq]                                           # (G,)
-    G = pq_key.shape[0]
-    pq_max = torch.full((G,), NEG, dtype=torch.float32, device=dev)
-    pq_max.scatter_reduce_(0, gid, adj_s, reduce="amax")
-    bp = pq_key >> qbits                                             # b*(P+1) + pid
-    q2 = pq_key & ((1 << qbits) - 1)
-    b2 = bp // (sentinel + 1)
-    pid2 = bp - b2 * (sentinel + 1)
-    real = pid2 != sentinel
-    contrib = torch.where(real, pq_max.clamp(min=0.0) + impute[b2, q2] * 0.5, 0.0)
+    perm = _sort_pid_q_score((pids << qbits) | q_of, neg_adj, qbits, sentinel)
+    p2 = pids.gather(1, perm)
+    q2 = q_of[perm]
+    a2 = -neg_adj.gather(1, perm)
 
-    new_p = torch.ones(G, dtype=torch.bool, device=dev)
-    new_p[1:] = bp[1:] != bp[:-1]
-    pgid = torch.cumsum(new_p, 0) - 1
-    p_key = bp[new_p]                                                # (Gp,)
-    Gp = p_key.shape[0]
-    sums = torch.zeros(Gp, dtype=torch.float32, device=dev)
-    sums.index_add_(0, pgid, contrib)
-    pb = p_key // (sentinel + 1)
-    ppid = p_key - pb * (sentinel + 1)
-    preal = ppid != sentinel
-    # dense per-query layout: a query's groups are contiguous, in pid order
-    counts = torch.zeros(B, dtype=torch.int64, device=dev)
-    counts.index_add_(0, pb, torch.ones_like(pb))
-    starts = torch.cumsum(counts, 0) - counts
-    slot = torch.arange(Gp, device=dev) - starts[pb]
-    W = ncells * cell_cap
-    stage1 = torch.full((B, W), NEG, dtype=torch.float32, device=dev)
-    dense_pids = torch.full((B, W), sentinel, dtype=torch.int64, device=dev)
-    stage1[pb, slot] = torch.where(preal, sums, NEG)
-    dense_pids[pb, slot] = ppid
-    n_unique = torch.zeros(B, dtype=torch.int64, device=dev)
-    n_unique.index_add_(0, pb, preal.to(torch.int64))
-    return stage1, dense_pids, n_unique
+    head = torch.ones((B, E), dtype=torch.bool, device=dev)
+    head_p = head.clone()
+    head[:, 1:] = (p2[:, 1:] != p2[:, :-1]) | (q2[:, 1:] != q2[:, :-1])
+    head_p[:, 1:] = p2[:, 1:] != p2[:, :-1]
+    real = p2 != sentinel
+    first_pq = head & real
+    first = head_p & real
+    n_unique = first.sum(dim=1)
+
+    # unclamped imputation: (s - i_q) + i_q/2 = s - i_q/2, the midpoint
+    contrib = torch.where(first_pq, a2.clamp(min=0.0) + impute.gather(1, q2) * 0.5, 0.0)
+    csum = torch.cumsum(contrib, dim=1)
+    csum_prev = torch.nn.functional.pad(csum[:, :-1], (1, 0))
+    pos = torch.arange(E, device=dev).expand(B, E)
+    # the next pid-run head at or after each position (E: none), then the
+    # run end of a head i: (the next head after i) - 1
+    nxt = torch.where(head_p, pos, E).flip(1).cummin(dim=1).values.flip(1)
+    run_end = torch.nn.functional.pad(nxt[:, 1:], (0, 1), value=E) - 1
+    stage1 = torch.where(first, csum.gather(1, run_end) - csum_prev, NEG)
+    return stage1, p2, n_unique
 
 
 def refine_column_bytes(B: int, max_doclen: int, Lq: int) -> int:
@@ -558,7 +670,7 @@ def _search(index: DeviceIndex, Q, *, k, nprobe, ncandidates, cell_cap,
     with _phase(tracer, "probe"):
         probe_scores, cells = _probe_topk(index, Q, nprobe)
     with _phase(tracer, "stage1"):
-        stage1, dense_pids, n_unique = _stage1(
+        stage1, p2, n_unique = _stage1(
             index, probe_scores, cells, cell_cap=cell_cap,
             centroid_threshold=centroid_threshold)
         refine = stage1_refine and ncandidates < max_candidates
@@ -569,9 +681,9 @@ def _search(index: DeviceIndex, Q, *, k, nprobe, ncandidates, cell_cap,
             # (sharded_index) has fewer slots than the common budget
             pad = sel_width - stage1.shape[1]
             stage1 = torch.nn.functional.pad(stage1, (0, pad), value=NEG)
-            dense_pids = torch.nn.functional.pad(dense_pids, (0, pad), value=sentinel)
+            p2 = torch.nn.functional.pad(p2, (0, pad), value=sentinel)
         w_vals, w_idx = torch.topk(stage1, sel_width, dim=1)
-        sel = torch.where(w_vals > NEG / 2, dense_pids.gather(1, w_idx), sentinel)
+        sel = torch.where(w_vals > NEG / 2, p2.gather(1, w_idx), sentinel)
     if refine:
         with _phase(tracer, "refine"):
             approx = _approx_maxsim(index, Q, sel)

@@ -8,10 +8,11 @@ Search: where the candidate budget covers every unique candidate (no
 refine, ``ncandidates >= #candidates``) the results must agree up to ties
 in the final score, scores to 1e-4. Where a cut truncates (a stage-1 or
 refine cut below the unique count), which of near-tied candidates survive
-the cut depends on rounding (the JAX stage-1 sums are cumsum differences,
-the port's segmented sums; ``lax.top_k`` and ``torch.topk`` order ties
-differently), so only the pids both return are compared: their final
-scores must agree to 1e-4, and most of the top-k must be shared.
+the cut depends on rounding (both stage-1 sums are cumsum differences, but
+XLA's and torch's cumsums add in different orders; ``lax.top_k`` and
+``torch.topk`` order ties differently), so only the pids both return are
+compared: their final scores must agree to 1e-4, and most of the top-k
+must be shared.
 """
 
 import jax.numpy as jnp
