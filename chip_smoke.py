@@ -115,11 +115,19 @@
    1e-6 relative, gradients 1e-3 x their max; peak memory of each), and
    a full-depth step through the card's bf16 attention route against the
    same step with the fp32-upcast attention standing in for it (the
-   route's hand-written backward in situ; limits ATTN_STEP_*). Then
-   300 steps: median ms per step after 3 warm-up steps, steps/s,
-   triples/s, tokens/s and model TFLOP/s, the loss at steps 1-3 and every
-   50, no flash launch, the last 20 steps' mean loss below the first 20's,
-   one step profiled. The checkpoint is saved and loaded back bit for bit
+   route's hand-written backward in situ; limits ATTN_STEP_*), and four
+   steps of the 2-layer fp32 model through the trainer's captured step
+   against ``make_train_step`` op by op from the same state (warm-up and
+   cosine, clipping; loss 1e-5 relative, gradients 1e-4 x their max,
+   parameters 1e-2 x lr, the lr the schedule's). Then 300 steps, each a
+   replay of the captured step from the second on: median ms per step
+   after 3 warm-up steps, steps/s, triples/s, tokens/s and model TFLOP/s,
+   the loss at steps 1-3 and every 50, no flash launch, the last 20 steps'
+   mean loss below the first 20's. Then the captured step against the same
+   step op by op, 20 steps each in turns (graphed, eager, eager, graphed),
+   one launch under ``set_sync_debug_mode("error")``, one step of each
+   route profiled (busy share, kernels run), the capture's seconds and
+   pool bytes. The checkpoint is saved and loaded back bit for bit
    (tensors and a 32-query encode); an index of the 4,096 passages is
    built with the trained encoder and searched with 64 prefix queries,
    whose embeddings must be the trained model's (all stage-2 launches
@@ -256,6 +264,8 @@ TRAIN_LR = 3e-5
 TRAIN_QUERIES = 64          # prefix queries of the retrieval check
 CHECK_LAYERS = 2            # depth of the card-vs-CPU step
 CHECK_TRIPLES = 8
+GRAPH_CHECK_STEPS = 4       # [train]: the captured step vs eager (warmup 2, cosine to 4)
+TRAIN_TURN_STEPS = 20       # [train]: steps per turn, captured step vs eager
 EXAMPLES_PASSAGES = 8_192   # [examples]: the eval fixture's collection and queries
 EXAMPLES_QUERIES = 64
 EXAMPLES_ADD = 64           # update add, then remove, then compact
@@ -792,6 +802,7 @@ def device_profile(fn) -> dict:
         by_kind[kernel_kind(name)] = by_kind.get(kernel_kind(name), 0.0) + ms
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
                 busy_share=busy_ms / wall_ms if busy_ms else "not measured",
+                kernels=sum(n for _, n, name in rows if kernel_kind(name) != "memcpy"),
                 by_kind=by_kind,
                 top=[dict(ms=ms, calls=n, op=name[:70]) for ms, n, name in rows[:12]])
 
@@ -1953,6 +1964,17 @@ def train_flops(model, q_shape, d_shape) -> float:
     return 6 * params * tokens + attention
 
 
+def first_layers(model) -> tuple:
+    """(config, CPU state dict) of ``model`` cut to its first CHECK_LAYERS
+    layers at full width."""
+    import dataclasses
+
+    cfg = dataclasses.replace(model.bert_config, num_hidden_layers=CHECK_LAYERS)
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()
+          if not k.startswith("bert.layers.") or int(k.split(".")[2]) < CHECK_LAYERS}
+    return cfg, sd
+
+
 def step_card_vs_cpu(model, tokenizer, triples, device) -> dict:
     """Check 1: one ``train_step`` of the first CHECK_LAYERS layers of
     ``model`` at full width, fp32 activations, TF32 off, constant lr, on the
@@ -1964,8 +1986,6 @@ def step_card_vs_cpu(model, tokenizer, triples, device) -> dict:
     constant added to every key score of a query, and q.(k + b) adds q.b),
     so its entries are rounding noise and a bound relative to their max
     means nothing: they are held to |g| <= 1e-9 on both sides instead."""
-    import dataclasses
-
     import torch
 
     from colbert_torch.models.colbert import ColBERT
@@ -1975,9 +1995,7 @@ def step_card_vs_cpu(model, tokenizer, triples, device) -> dict:
     if device.type == "cuda":
         check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
               "train: TF32 must be off for the card-vs-CPU step")
-    cfg = dataclasses.replace(model.bert_config, num_hidden_layers=CHECK_LAYERS)
-    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()
-          if not k.startswith("bert.layers.") or int(k.split(".")[2]) < CHECK_LAYERS}
+    cfg, sd = first_layers(model)
     out = {}
     for dev in (device, torch.device("cpu")):
         small = ColBERT(cfg, model.dim)
@@ -2018,6 +2036,163 @@ def step_card_vs_cpu(model, tokenizer, triples, device) -> dict:
     check(param_err <= 1e-2 * TRAIN_LR, f"train: card vs CPU parameters {param_err}")
     return dict(check_loss_rel=loss_rel, check_grad_rel=grad_rel, check_param_err=param_err,
                 check_masked_err=masked_err)
+
+
+def graphed_vs_eager(model, tokenizer, triples, device) -> dict:
+    """The captured step against the eager one: GRAPH_CHECK_STEPS steps of
+    CHECK_TRIPLES triples each on the first CHECK_LAYERS layers of
+    ``model`` at full width, fp32 activations, TF32 off, warm-up 2 and the
+    cosine to step GRAPH_CHECK_STEPS, clipping at 1.0:
+    ``ColBERTTrainer.train_step`` (on a card step 1 the eager warm-up, step
+    2 the capture and its replay, then replays) against ``make_train_step``
+    over a twin with the same optimizer (``default_optimizer``: on the card
+    capturable, its lr a device tensor) under the same schedule, run op by
+    op, from the same state. Loss 1e-5 relative per step;
+    ``p.grad`` readable after every step and within 1e-4 x its max |g| +
+    1e-7; every parameter within 1e-2 x lr, entries whose gradient was ever
+    nonzero but below 1e-6 apart (Adam moves them +-lr by a sign that
+    rounding may flip: 2 x lr per step since); the lr after step n
+    ``lr_multiplier(n)`` x peak within 1e-6 x peak (an fp32 tensor on the
+    card, filled in place)."""
+    import copy
+    import torch
+
+    from colbert_torch.models.colbert import ColBERT
+    from colbert_torch.models.encoder import ColBERTEncoder
+    from colbert_torch.training import trainer as pt
+
+    cfg, sd = first_layers(model)
+    small = ColBERT(cfg, model.dim)
+    small.load_state_dict(sd, strict=True)
+    enc = ColBERTEncoder(small, tokenizer, train_config(activation_dtype="float32"),
+                         device=device)
+    twin = copy.deepcopy(enc.model)
+    sched = dict(warmup_steps=2, total_steps=GRAPH_CHECK_STEPS)
+    trainer = pt.ColBERTTrainer(enc, learning_rate=TRAIN_LR, **sched)
+    opt = pt.default_optimizer(twin.parameters(), TRAIN_LR, 0.01, device)
+    eager = pt.make_train_step(twin, opt, dtype_name="float32", max_grad_norm=1.0,
+                               scheduler=torch.optim.lr_scheduler.LambdaLR(
+                                   opt, pt.lr_multiplier(**sched)))
+    mult = pt.lr_multiplier(**sched)
+    lr_tensor = trainer.optimizer.param_groups[0]["lr"]
+    named = list(enc.model.named_parameters())
+    ever = [torch.zeros_like(p, dtype=torch.bool) for _, p in named]
+    loss_rel = grad_ratio = param_err = apart_ratio = lr_err = 0.0
+    unreadable, in_place, losses = 0, True, []
+    for step in range(GRAPH_CHECK_STEPS):
+        batch = triples[step * CHECK_TRIPLES:(step + 1) * CHECK_TRIPLES]
+        host = trainer._tensorize(batch)
+        got = trainer.train_step(batch)
+        want = eager(dict(zip(host, enc._put_batch(*host.values()))))
+        losses.append((got["loss"], want["loss"]))
+        loss_rel = max(loss_rel, abs(got["loss"] - want["loss"]) / abs(want["loss"]))
+        lr_now = trainer.optimizer.param_groups[0]["lr"]
+        in_place &= lr_now is lr_tensor
+        lr_err = max(lr_err, abs(float(lr_now) - TRAIN_LR * mult(step + 1)) / TRAIN_LR)
+        for i, ((name, p), q) in enumerate(zip(named, twin.parameters())):
+            if p.grad is None:
+                unreadable += 1
+                continue
+            g = q.grad.abs()
+            grad_ratio = max(grad_ratio, float((p.grad - q.grad).abs().max())
+                             / (1e-4 * float(g.max()) + 1e-7))
+            ever[i] |= (g < 1e-6) & (g != 0)
+            diff = (p - q).detach().abs()
+            param_err = max(param_err, float(torch.where(ever[i], 0, diff).max()))
+            apart_ratio = max(apart_ratio, float(torch.where(ever[i], diff, 0).max())
+                              / (2 * TRAIN_LR * (step + 1)))
+    (prog,) = trainer.programs.programs()
+    apart = int(sum(int(e.sum()) for e in ever))
+    print(f"[train] captured step vs make_train_step, {CHECK_LAYERS} layers at full width, fp32, "
+          f"{GRAPH_CHECK_STEPS} steps of {CHECK_TRIPLES} triples (warmup 2, cosine, clipping): "
+          f"losses {[(round(a, 8), round(b, 8)) for a, b in losses]}, max rel {loss_rel:.3e} "
+          f"(limit 1e-5); max grad err / (1e-4 max|g| + 1e-7) "
+          f"{grad_ratio:.3e} (limit 1), unreadable grads {unreadable}; max param err "
+          f"{param_err:.3e} (limit {1e-2 * TRAIN_LR:.1e}); {apart} entries ever 0 < |g| < "
+          f"1e-6: max err / (2 lr x steps) {apart_ratio:.3e} (limit 1); lr err / peak "
+          f"{lr_err:.3e} (limit 1e-6), filled in place "
+          f"{in_place if device.type == 'cuda' else 'n/a (a float lr on the CPU)'}; program: "
+          f"{prog.launches} launches, {prog.replays} replays, capture {prog.capture_s:.3f}s, "
+          f"pool {prog.pool_bytes / 2**20:.1f} MiB")
+    check(loss_rel <= 1e-5, f"train: captured step loss {loss_rel}")
+    check(unreadable == 0 and grad_ratio <= 1.0, f"train: captured step gradients "
+          f"({unreadable} unreadable, ratio {grad_ratio})")
+    check(param_err <= 1e-2 * TRAIN_LR and apart_ratio <= 1.0,
+          f"train: captured step parameters {param_err}, {apart_ratio}")
+    check(lr_err <= 1e-6 and (in_place or device.type != "cuda"), f"train: lr {lr_err}")
+    if device.type == "cuda":
+        check(prog.graph is not None and prog.replays == GRAPH_CHECK_STEPS - 1,
+              f"train: {prog.replays} replays of the captured step")
+    return dict(graph_check_loss_rel=loss_rel, graph_check_grad_ratio=grad_ratio,
+                graph_check_param_err=param_err, graph_check_lr_err=lr_err)
+
+
+def train_routes(trainer, triples, batch: int) -> dict:
+    """On the card, after [train]'s run: the captured step against the same
+    step op by op (``make_train_step`` over the trainer's own model,
+    optimizer and schedule, after tokenizing and putting the batch, as
+    ``train_step`` ran before its step was captured), TRAIN_TURN_STEPS
+    steps each in turns (graphed, eager, eager, graphed): each turn's
+    median ms per step; one launch under ``set_sync_debug_mode("error")``;
+    one profiled step each way (busy share, kernels run); the program's
+    capture seconds and pool bytes."""
+    import statistics
+
+    import torch
+
+    from colbert_torch.training.trainer import make_train_step
+
+    enc = trainer.encoder
+    eager_step = make_train_step(enc.model, trainer.optimizer,
+                                 dtype_name=enc.config.activation_dtype,
+                                 in_batch_negatives=trainer.in_batch_negatives,
+                                 scheduler=trainer.scheduler,
+                                 max_grad_norm=trainer._max_grad_norm)
+
+    def eager(texts):
+        host = trainer._tensorize(texts)
+        return eager_step(dict(zip(host, enc._put_batch(*host.values()))))
+
+    routes = {"graphed": trainer.train_step, "eager": eager}
+    turns = {"graphed": [], "eager": []}
+    for route in ("graphed", "eager", "eager", "graphed"):
+        times = []
+        for step in range(TRAIN_TURN_STEPS):
+            t0 = time.perf_counter()
+            m = routes[route](triples[step * batch:(step + 1) * batch])
+            times.append(time.perf_counter() - t0)
+            check(np.isfinite(m["loss"]), f"train: {route} loss {m['loss']}")
+        turns[route].append(statistics.median(times) * 1e3)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        values, ready = trainer._launch(trainer._tensorize(triples[:batch]))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ready.synchronize()
+    check(bool(np.isfinite(values.numpy()).all()), "train: the launch under sync debug mode")
+    prof = {"graphed": device_profile(lambda: trainer.train_step(triples[:batch])),
+            "eager": device_profile(lambda: eager(triples[:batch]))}
+    stats = trainer.programs.stats()
+    print(f"[train] captured step vs eager, {batch} triples, bf16, remat, in turns (graphed, "
+          f"eager, eager, graphed) of {TRAIN_TURN_STEPS} steps: median ms per step "
+          f"{json.dumps({k: [round(v, 3) for v in t] for k, t in turns.items()})}; one launch "
+          f"under sync debug mode 'error' passed; profiled step: graphed busy "
+          f"{prof['graphed']['busy_share']} ({prof['graphed']['device_busy_ms']:.3f} of "
+          f"{prof['graphed']['wall_ms']:.3f} ms, {prof['graphed']['kernels']} kernels in one "
+          f"graph launch), eager {prof['eager']['busy_share']} "
+          f"({prof['eager']['device_busy_ms']:.3f} of {prof['eager']['wall_ms']:.3f} ms, "
+          f"{prof['eager']['kernels']} kernel launches); programs {stats['held']} held, "
+          f"capture {stats['capture_s']:.3f}s, pool {stats['pool_bytes'] / 2**30:.3f} GiB, "
+          f"replays {stats['replays']}; on {card_line()}")
+    for route, p in prof.items():
+        print(f"[profile] train step {route} " + json.dumps(p))
+    check(stats["held"] == 1 and stats["replays"] > 0, f"train: programs {stats}")
+    return dict(train_turn_ms=turns,
+                train_busy_share={k: p["busy_share"] for k, p in prof.items()},
+                train_kernels={k: p["kernels"] for k, p in prof.items()},
+                train_profile_wall_ms={k: p["wall_ms"] for k, p in prof.items()},
+                train_capture_s=stats["capture_s"], train_pool_bytes=stats["pool_bytes"])
 
 
 def bf16_step(model, batch, device, *, remat: bool):
@@ -2139,6 +2314,7 @@ def train_phase(device, *, bert_cfg, n_passages: int = TRAIN_PASSAGES,
     print(f"[train] model {bert_cfg} params {sum(p.numel() for p in model.parameters())}; "
           f"{len(triples)} triples over {n_passages} passages")
     out = step_card_vs_cpu(model, tokenizer, triples[:CHECK_TRIPLES], device)
+    out.update(graphed_vs_eager(model, tokenizer, triples, device))
 
     cfg = train_config()
     enc = ColBERTEncoder(model, tokenizer, cfg, device=device)
@@ -2179,8 +2355,10 @@ def train_phase(device, *, bert_cfg, n_passages: int = TRAIN_PASSAGES,
     head = float(np.mean([h["loss"] for h in hist[:20]]))
     tail = float(np.mean([h["loss"] for h in hist[-20:]]))
     tail_acc = float(np.mean([h["pairwise_acc"] for h in hist[-20:]]))
-    print(f"[train] {steps} steps x {batch} triples: median {ms:.3f} ms per step after 3 "
-          f"warm-up steps -> {1e3 / ms:.3f} steps/s, {batch * 1e3 / ms:.2f} triples/s, "
+    route = (f"captured: step 1 the eager warm-up, step 2 the capture {times[1] * 1e3:.2f} ms, "
+             f"then replays" if cuda else "eager")
+    print(f"[train] {steps} steps x {batch} triples ({route}): median {ms:.3f} ms per step after "
+          f"3 warm-up steps -> {1e3 / ms:.3f} steps/s, {batch * 1e3 / ms:.2f} triples/s, "
           f"{tokens * 1e3 / ms:.0f} tokens/s ({tokens} padded positions per step: "
           f"{q_shape[0]}x{q_shape[1]} query + {d_shape[0]}x{d_shape[1]} doc); model "
           f"{flops * 1e3 / ms / 1e12:.2f} TFLOP/s ({flops / 1e12:.4f} TFLOP per step = 6 x "
@@ -2192,8 +2370,7 @@ def train_phase(device, *, bert_cfg, n_passages: int = TRAIN_PASSAGES,
     check(flash == 0, f"train: {flash} flash launches; training never routes to flash")
     check(tail < head, f"train: the loss did not fall ({head} -> {tail})")
     if cuda:
-        prof = device_profile(lambda: trainer.train_step(triples[:batch]))
-        print("[profile] train step " + json.dumps(prof))
+        out.update(train_routes(trainer, triples, batch))
     out.update(train_ms=ms, train_steps_per_s=1e3 / ms, train_triples_per_s=batch * 1e3 / ms,
                train_tokens_per_s=tokens * 1e3 / ms, train_tflops=flops * 1e3 / ms / 1e12,
                train_step_peak_gib=step_peak / 2**30, train_loss_head=head,
@@ -2323,16 +2500,12 @@ def mesh_step_checks(model, tokenizer, triples, device) -> dict:
     the dp x tp step inside a one-process NCCL group (gloo on the CPU),
     whose collectives run at world size 1, against the step without a
     group: within 1e-6."""
-    import dataclasses
-
     import torch
     import torch.distributed as dist
 
     from colbert_torch.parallel import launch
 
-    cfg = dataclasses.replace(model.bert_config, num_hidden_layers=CHECK_LAYERS)
-    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()
-          if not k.startswith("bert.layers.") or int(k.split(".")[2]) < CHECK_LAYERS}
+    cfg, sd = first_layers(model)
 
     def step(shape):
         trainer = mesh_trainer(sd, cfg, tokenizer, train_config(activation_dtype="float32"),

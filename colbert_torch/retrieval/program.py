@@ -44,6 +44,8 @@ there, and capture and replay only on the card.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import threading
 import time
 from collections import OrderedDict
@@ -53,7 +55,7 @@ import numpy as np
 import torch
 
 __all__ = ["Program", "ProgramCache", "MAX_PROGRAMS", "STAGING_SLOTS",
-           "tensor_signature"]
+           "capture", "tensor_signature"]
 
 # programs kept per index: every batch bucket of one operating point
 # (Searcher.QUERY_BATCH_BUCKETS) fits, a sweep of points cycles through
@@ -75,6 +77,23 @@ def _device_streams(device: torch.device) -> tuple[torch.cuda.Stream, torch.cuda
         if index not in _streams:
             _streams[index] = (torch.cuda.Stream(index), torch.cuda.Stream(index))
         return _streams[index]
+
+
+@contextlib.contextmanager
+def capture(graph: torch.cuda.CUDAGraph, stream: torch.cuda.Stream):
+    """``torch.cuda.graph`` on ``stream`` in thread-local mode, with the
+    interpreter's cyclic garbage collector held off: a collection during
+    the capture may finalize an unreachable program (its graph, its pool,
+    its events), and those CUDA calls are illegal while a stream captures
+    (the process aborts). ``torch.cuda.graph`` collects once on entry."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+            yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def tensor_signature(tensors: Sequence[torch.Tensor | None]) -> tuple:
@@ -191,7 +210,7 @@ class Program:
             reserved = torch.cuda.memory_reserved(self.device)
             before = _launch_counts()
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+            with capture(graph, stream):
                 self.outputs = list(self.fn(*self.inputs))
             after = _launch_counts()
             self._delta = [{v: a[v] - b[v] for v in a} for a, b in zip(after, before)]
@@ -223,6 +242,15 @@ class ProgramCache:
             while len(self._programs) > self.capacity:
                 self._programs.popitem(last=False)
             return prog
+
+    def rekey(self, old, new) -> None:
+        """File the program of ``old`` under ``new``: what it reads has
+        changed identity under it (a training step's first launch makes the
+        optimizer's state)."""
+        with self._lock:
+            prog = self._programs.pop(old, None)
+            if prog is not None:
+                self._programs[new] = prog
 
     def clear(self) -> None:
         with self._lock:

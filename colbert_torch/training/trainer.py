@@ -10,19 +10,23 @@ backward through the port's BERT (each layer recomputed, as the JAX step's
 
 The JAX trainer's optax chain maps to torch as follows:
 - ``optax.adamw(lr, weight_decay)`` -> ``torch.optim.AdamW`` over every
-  parameter in one group: optax's ``mask=None`` decays biases, layer-norm
-  scales and embeddings too, so the usual HF exclusions are not copied;
+  parameter in one group (:func:`default_optimizer`): optax's ``mask=None``
+  decays biases, layer-norm scales and embeddings too, so the usual HF
+  exclusions are not copied;
 - its learning-rate schedule -> a ``LambdaLR`` over :func:`lr_multiplier`
   (optax reads a schedule at the update count before the step, so the
   first step of a warmed-up run has lr 0; ``LambdaLR`` applies
   ``multiplier(0)`` to the first ``optimizer.step()`` as well);
 - ``optax.clip_by_global_norm`` -> ``clip_grad_norm_``.
 
-Training runs on the encoder's device, or over the mesh that
-``ColBERTEncoder.attach_mesh`` attached (:func:`make_mesh_train_step`:
-DP, TP, dp x tp, and meshes that span processes), computing the JAX mesh
-step's function: the loss of the whole batch, in-batch negatives across
-every shard included. The encoder's own methods hold ``no_grad``; the step
+Training runs on the encoder's device: on a card as one captured CUDA
+graph per static step key, the counterpart of the JAX trainer's jitted
+``step`` (:mod:`colbert_torch.training.program`), on the CPU eagerly
+(:func:`make_train_step`'s sequence on static buffers); or over the mesh
+that ``ColBERTEncoder.attach_mesh`` attached (:func:`make_mesh_train_step`,
+eager: DP, TP, dp x tp, and meshes that span processes), computing the
+JAX mesh step's function: the loss of the whole batch, in-batch negatives
+across every shard included. The encoder's own methods hold ``no_grad``; the step
 calls ``model.forward_normalized`` directly, as the JAX step calls
 ``encode_batch`` on the params. Attention is the materialized one: the JAX
 step does not route to flash either.
@@ -40,7 +44,10 @@ import torch.nn.functional as F
 
 from colbert_torch.models.colbert import ColBERT, skiplist_keep_mask
 from colbert_torch.models.encoder import ColBERTEncoder
+from colbert_torch.retrieval.program import ProgramCache
 from colbert_torch.tokenization.tensorize import tensorize_docs, tensorize_queries
+from colbert_torch.training.program import (TRAIN_PROGRAMS, StepProgram, input_dtype,
+                                            step_key, step_route)
 
 __all__ = [
     "colbert_maxsim",
@@ -50,6 +57,7 @@ __all__ = [
     "loss_on_embeddings",
     "train_loss",
     "lr_multiplier",
+    "make_device_step",
     "make_train_step",
     "make_mesh_train_step",
     "ColBERTTrainer",
@@ -192,18 +200,66 @@ def lr_multiplier(warmup_steps: int = 0, total_steps: int | None = None) -> Call
     return lambda count: 1.0
 
 
-def _update(params, optimizer, scheduler, max_grad_norm, metrics: dict) -> dict:
-    """Clip, ``optimizer.step()``, ``scheduler.step()`` -> the metrics as
-    Python floats."""
+METRICS = ("loss", "pairwise_acc", "margin")
+
+
+def default_optimizer(params, learning_rate: float, weight_decay: float,
+                      device: torch.device) -> torch.optim.AdamW:
+    """The trainer's AdamW over ``params`` (one group, every parameter
+    decayed, as optax's ``mask=None``). On a card the step is a captured
+    graph: the lr is a device tensor that the schedule fills in place and
+    the step count lives on the card (``capturable``); on the CPU the lr is
+    a float."""
+    if torch.device(device).type == "cuda":
+        return torch.optim.AdamW(params, lr=torch.tensor(learning_rate, device=device),
+                                 weight_decay=weight_decay, capturable=True, foreach=True)
+    return torch.optim.AdamW(params, lr=learning_rate, weight_decay=weight_decay)
+
+
+def _clip_and_step(params, optimizer, max_grad_norm) -> None:
+    """Clip the global norm to ``max_grad_norm`` (unless None), then
+    ``optimizer.step()``: no host read."""
     if max_grad_norm is not None:
         # scales by max_norm / (norm + 1e-6) where optax divides by the
         # norm itself: a relative 1e-6
         torch.nn.utils.clip_grad_norm_(params, max_grad_norm)
     optimizer.step()
-    if scheduler is not None:
-        scheduler.step()
-    values = torch.stack(list(metrics.values())).tolist()  # one device sync
-    return dict(zip(metrics, values))
+
+
+def _to_host(values: torch.Tensor) -> dict:
+    """The (3,) metrics tensor -> ``{name: float}``: the step's one read-back."""
+    return dict(zip(METRICS, values.tolist()))
+
+
+def make_device_step(
+    model: ColBERT,
+    optimizer: torch.optim.Optimizer,
+    *,
+    dtype_name: str = "bfloat16",
+    in_batch_negatives: bool = True,
+    max_grad_norm: float | None = None,
+) -> Callable[[dict], torch.Tensor]:
+    """-> ``step(batch) -> (3,) fp32 metrics`` in ``METRICS``' order: the
+    loss of :func:`train_loss` with each layer recomputed, backward, the
+    clipped ``optimizer.step()``. It reads nothing back to the host and
+    leaves the gradients as the caller set them up (``zero_grad`` is the
+    caller's), so a CUDA graph captures it whole
+    (:mod:`colbert_torch.training.program`)."""
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+
+    def step(batch: dict) -> torch.Tensor:
+        with torch.enable_grad():
+            loss, metrics = train_loss(model, batch, dtype_name=dtype_name,
+                                       in_batch_negatives=in_batch_negatives, remat=True)
+            loss.backward()
+        # every parameter takes part in both forwards, so autograd gives each
+        # a gradient tensor, zeros included (unused vocab and position rows,
+        # token_type row 1): AdamW then decays every entry, as optax's adamw
+        # does; it would skip a parameter whose grad were None
+        _clip_and_step(params, optimizer, max_grad_norm)
+        return torch.stack([metrics[k] for k in METRICS])
+
+    return step
 
 
 def make_train_step(
@@ -216,23 +272,19 @@ def make_train_step(
     max_grad_norm: float | None = None,
 ) -> Callable[[dict], dict]:
     """-> ``step(batch) -> metrics`` (Python floats ``loss``,
-    ``pairwise_acc``, ``margin``): zero the gradients, the loss of
-    :func:`train_loss` with each layer recomputed, backward, clip the global
-    norm to ``max_grad_norm`` (unless None), ``optimizer.step()``, then
-    ``scheduler.step()``. ``model``'s parameters are updated in place."""
-    params = [p for group in optimizer.param_groups for p in group["params"]]
+    ``pairwise_acc``, ``margin``), the eager step: zero the gradients,
+    :func:`make_device_step`'s step, ``scheduler.step()``, then the one
+    read-back. ``model``'s parameters are updated in place."""
+    device_step = make_device_step(model, optimizer, dtype_name=dtype_name,
+                                   in_batch_negatives=in_batch_negatives,
+                                   max_grad_norm=max_grad_norm)
 
     def step(batch: dict) -> dict:
         optimizer.zero_grad(set_to_none=True)
-        with torch.enable_grad():
-            loss, metrics = train_loss(model, batch, dtype_name=dtype_name,
-                                       in_batch_negatives=in_batch_negatives, remat=True)
-            loss.backward()
-        # every parameter takes part in both forwards, so autograd gives each
-        # a gradient tensor, zeros included (unused vocab and position rows,
-        # token_type row 1): AdamW then decays every entry, as optax's adamw
-        # does; it would skip a parameter whose grad were None
-        return _update(params, optimizer, scheduler, max_grad_norm, metrics)
+        values = device_step(batch)
+        if scheduler is not None:
+            scheduler.step()
+        return _to_host(values)
 
     return step
 
@@ -300,7 +352,10 @@ def make_mesh_train_step(
             loss.backward()
         reduce_grads(model, encoder._replicas)
         launch.sum_grads(list(model.parameters()))
-        metrics = _update(params, optimizer, scheduler, max_grad_norm, metrics)
+        _clip_and_step(params, optimizer, max_grad_norm)
+        if scheduler is not None:
+            scheduler.step()
+        metrics = _to_host(torch.stack([metrics[k] for k in METRICS]))
         encoder.refresh_replicas()
         return metrics
 
@@ -319,8 +374,11 @@ class ColBERTTrainer:
     the optimizer built. The default is ``AdamW(learning_rate,
     weight_decay)`` after global-norm clipping to ``max_grad_norm``, under
     :func:`lr_multiplier`'s schedule. The optimizer holds
-    ``encoder.model``'s parameters. With a mesh attached to the encoder
-    (``encoder.attach_mesh``) each step runs over it
+    ``encoder.model``'s parameters. On a card each step replays the
+    captured program of its key, so the optimizer must be capturable (the
+    default is; a factory's is refused otherwise, ``ValueError``), and
+    ``self.programs`` holds the programs. With a mesh attached to the
+    encoder (``encoder.attach_mesh``) each step runs over it eagerly
     (:func:`make_mesh_train_step`) and the encoder's replicas take the
     updated weights, so every later encode, checkpoint and index sees the
     trained model."""
@@ -336,26 +394,28 @@ class ColBERTTrainer:
 
     def __post_init__(self) -> None:
         params = list(self.encoder.model.parameters())
+        device = torch.device(self.encoder.device)
         self.scheduler = None
-        max_grad_norm = None
+        self._max_grad_norm = None
         if self.optimizer is None:
-            self.optimizer = torch.optim.AdamW(params, lr=self.learning_rate,
-                                               weight_decay=self.weight_decay)
+            self.optimizer = default_optimizer(params, self.learning_rate, self.weight_decay,
+                                               device)
             self.scheduler = torch.optim.lr_scheduler.LambdaLR(
                 self.optimizer, lr_multiplier(self.warmup_steps, self.total_steps))
-            max_grad_norm = self.max_grad_norm
+            self._max_grad_norm = self.max_grad_norm
         else:
             self.optimizer = self.optimizer(params)
-        self._step = make_train_step(
+        step_route(device, self.encoder.mesh, self.optimizer)  # refuses before any update
+        self._device_step = make_device_step(
             self.encoder.model, self.optimizer,
             dtype_name=self.encoder.config.activation_dtype,
-            in_batch_negatives=self.in_batch_negatives,
-            scheduler=self.scheduler, max_grad_norm=max_grad_norm,
+            in_batch_negatives=self.in_batch_negatives, max_grad_norm=self._max_grad_norm,
         )
         self._mesh_step = make_mesh_train_step(
             self.encoder, self.optimizer, in_batch_negatives=self.in_batch_negatives,
-            scheduler=self.scheduler, max_grad_norm=max_grad_norm,
+            scheduler=self.scheduler, max_grad_norm=self._max_grad_norm,
         )
+        self.programs = ProgramCache(TRAIN_PROGRAMS)
         self.history: list[dict] = []
 
     def _tensorize(self, triples: Sequence[Tuple[str, str, str]]) -> dict:
@@ -389,17 +449,50 @@ class ColBERTTrainer:
 
         With ``teacher_scores`` (B, 2), a cross-encoder's (pos, neg) scores,
         the step optimizes ColBERTv2's KL distillation objective instead of
-        the contrastive cross-entropy. Over a mesh the batch must divide the
-        data axis (``ValueError``, as in the JAX trainer)."""
+        the contrastive cross-entropy. On a card the step replays the
+        captured program of its key (:mod:`colbert_torch.training.program`);
+        over a mesh the batch must divide the data axis (``ValueError``, as
+        in the JAX trainer)."""
         host = self._tensorize(triples)
         if teacher_scores is not None:
             host["teacher_scores"] = np.asarray(teacher_scores, np.float32)
         if self.encoder.mesh is not None:
             metrics = self._mesh_step(host)
         else:
-            metrics = self._step(dict(zip(host, self.encoder._put_batch(*host.values()))))
+            values, ready = self._launch(host)
+            if ready is not None:
+                ready.synchronize()
+            metrics = _to_host(values)
         self.history.append(metrics)
         return metrics
+
+    def _launch(self, host: dict) -> tuple[torch.Tensor, torch.cuda.Event | None]:
+        """Launch the step program of ``host``'s key, then step the schedule
+        -> (the step's metrics tensor, the event after which it is readable,
+        or None on the CPU). A key's first launch makes the optimizer's
+        state, so its program is filed again under the key that includes
+        that state."""
+        device = torch.device(self.encoder.device)
+        graphed = step_route(device, None, self.optimizer) == "graphed"
+        objective = ("distillation" if "teacher_scores" in host
+                     else "in_batch" if self.in_batch_negatives else "pairwise")
+        kw = dict(objective=objective, dtype_name=self.encoder.config.activation_dtype,
+                  max_grad_norm=self._max_grad_norm, graphed=graphed)
+        key = step_key(host, self.optimizer, **kw)
+        names = list(host)
+
+        def make() -> StepProgram:
+            return StepProgram(lambda *inputs: self._device_step(dict(zip(names, inputs))),
+                               self.optimizer, [a.shape for a in host.values()],
+                               [input_dtype(a) for a in host.values()], device)
+
+        prog = self.programs.get(key, make)
+        out = prog.launch(*host.values())
+        if prog.launches == 1:
+            self.programs.rekey(key, step_key(host, self.optimizer, **kw))
+        if self.scheduler is not None:
+            self.scheduler.step()
+        return out
 
     def save_checkpoint(self, directory: str) -> None:
         """Write the fine-tuned weights as an HF-compatible checkpoint

@@ -25,8 +25,13 @@ serving program: graphed ``search_batch`` against the eager entry up to
 ties (1e-4, fp32 and bf16 activations), one stage-2 count per launch, a
 launch under ``set_sync_debug_mode("error")``, launches in flight reading
 back their own results, programs after ``set_balance_cap``, an updater add
-and an in-place training step, and a failed capture that raises. Every
-test skips without a GPU. This file imports no JAX; on a machine without JAX run it as
+and in-place training steps (eager and graphed), and a failed capture that
+raises; and the captured training step: four fp32 steps graphed against
+the same optimizer's eager steps (loss 1e-5 relative, gradients 1e-4 x
+their max, parameters 1e-2 x lr, the lr the schedule's), the bf16 step and
+its replays under ``set_sync_debug_mode("error")``, a failed capture that
+raises, and a non-capturable optimizer refused. Every test skips without a
+GPU. This file imports no JAX; on a machine without JAX run it as
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
@@ -680,11 +685,22 @@ def test_programs_follow_rebalance_updates_and_training(cuda_device, tmp_path):
     built = new.device_index.programs.built
     docs = synthetic_collection(16, seed=13, words_per_doc=12)
     triples = [(" ".join(docs[i].split()[:4]), docs[i], docs[8 + i]) for i in range(8)]
-    ColBERTTrainer(new.encoder, learning_rate=1e-2).train_step(triples)
+    trainer = ColBERTTrainer(new.encoder, learning_rate=1e-2)
+    trainer.train_step(triples)  # the training key's warm-up: an eager step
     trained = new.search_batch(batch, k=10)
     assert new.device_index.programs.built == built
     _agree_up_to_ties(*trained, *_eager(new, batch))
     assert not np.array_equal(trained[1], got[1])
+    # graphed training: the capture, then replays; the serving program
+    # replayed after each serves the weights of that step
+    for replays in (1, 2):
+        trainer.train_step(triples)
+        assert trainer.programs.programs()[0].replays == replays
+        served = new.search_batch(batch, k=10)
+        assert new.device_index.programs.built == built
+        _agree_up_to_ties(*served, *_eager(new, batch))
+        assert not np.array_equal(served[1], trained[1])
+        trained = served
 
 
 @pytest.mark.cuda
@@ -708,3 +724,155 @@ def test_a_failed_capture_raises(cuda_device, tmp_path, monkeypatch):
             s.search_batch(queries[:4], k=10)
     torch.cuda.synchronize()
     assert s.device_index.programs.stats()["replays"] == 0
+
+
+# --- the captured training step -------------------------------------------
+
+
+def _train_setup(device, dtype="float32", n_batches=4):
+    """A 2-layer bert-base-width encoder on ``device`` at ``dtype``
+    activations and ``n_batches`` batches of 8 triples."""
+    from colbert_torch.config import ColBERTConfig
+    from colbert_torch.models.bert import BertConfig
+    from colbert_torch.utils.testing import make_encoder, make_vocab, synthetic_collection
+
+    cfg = BertConfig(vocab_size=len(make_vocab()), num_hidden_layers=2)
+    ccfg = ColBERTConfig(dim=128, doc_maxlen=64, query_maxlen=16, activation_dtype=dtype)
+    enc = make_encoder(dim=128, config=ccfg, bert_config=cfg, device=device)
+    docs = synthetic_collection(16 * n_batches, seed=1, words_per_doc=10)
+    batches = [[(" ".join(docs[16 * b + i].split()[:4]), docs[16 * b + i], docs[16 * b + 8 + i])
+                for i in range(8)] for b in range(n_batches)]
+    return enc, batches
+
+
+@pytest.mark.cuda
+def test_graphed_training_matches_eager(cuda_device):
+    """Four steps (warm-up 2, cosine to step 4, clipping at 1.0) of the
+    trainer's graphed route (step 1 the eager warm-up, step 2 the capture and
+    its replay, then replays) against ``make_train_step`` over a twin with
+    the same optimizer (capturable AdamW, its lr a device tensor) under the
+    same schedule, run op by op, fp32, TF32 off: loss 1e-5 relative per
+    step; ``p.grad`` readable after every step and within 1e-4 x its max
+    |g| + 1e-7; every parameter within
+    1e-2 x lr, entries whose gradient is nonzero but below 1e-6 apart (Adam
+    moves them +-lr by a sign that rounding may flip: 2 x lr per step); the
+    lr after step n equal to ``lr_multiplier(n)`` x peak (1e-6 relative: an
+    fp32 tensor)."""
+    import copy
+
+    from colbert_torch.training import trainer as pt
+
+    lr, sched = 1e-3, dict(warmup_steps=2, total_steps=4)
+    enc, batches = _train_setup(cuda_device)
+    twin = copy.deepcopy(enc.model)
+    trainer = pt.ColBERTTrainer(enc, learning_rate=lr, **sched)
+    opt = pt.default_optimizer(twin.parameters(), lr, 0.01, cuda_device)
+    eager = pt.make_train_step(twin, opt, dtype_name="float32", max_grad_norm=1.0,
+                               scheduler=torch.optim.lr_scheduler.LambdaLR(
+                                   opt, pt.lr_multiplier(**sched)))
+    mult = pt.lr_multiplier(**sched)
+    lr_tensor = trainer.optimizer.param_groups[0]["lr"]
+    for step, triples in enumerate(batches):
+        host = trainer._tensorize(triples)
+        got = trainer.train_step(triples)
+        want = eager(dict(zip(host, enc._put_batch(*host.values()))))
+        assert abs(got["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"]), (step, got, want)
+        assert trainer.optimizer.param_groups[0]["lr"] is lr_tensor  # filled in place
+        now = float(lr_tensor)
+        assert now == pytest.approx(lr * mult(step + 1), rel=1e-6, abs=1e-12), step
+        for (name, p), q in zip(enc.model.named_parameters(), twin.parameters()):
+            g = q.grad.abs()
+            assert p.grad is not None, (step, name)
+            assert float((p.grad - q.grad).abs().max()) <= 1e-4 * float(g.max()) + 1e-7, name
+            apart = (g < 1e-6) & (g != 0)
+            diff = (p - q).detach().abs()
+            assert float(torch.where(apart, 0, diff).max()) <= 1e-2 * lr, (step, name)
+            assert float(torch.where(apart, diff, 0).max()) <= 2 * lr * (step + 1), (step, name)
+    (prog,) = trainer.programs.programs()
+    assert prog.graph is not None and prog.replays == 3 and prog.pool_bytes > 0
+
+
+@pytest.mark.cuda
+def test_training_replays_make_no_host_synchronization(cuda_device):
+    """The bf16 device step (remat, the attention products' own backward,
+    clipping, capturable AdamW) runs eagerly under
+    ``set_sync_debug_mode("error")`` before any capture; after the capture,
+    two launches (copy-in, replay, metrics copy-out, the schedule's step)
+    pass under it too, and their metrics read back finite."""
+    import copy
+
+    from colbert_torch.training import trainer as pt
+
+    enc, batches = _train_setup(cuda_device, "bfloat16", n_batches=2)
+    twin = copy.deepcopy(enc.model)
+    opt = pt.default_optimizer(twin.parameters(), 1e-3, 0.01, cuda_device)
+    step = pt.make_device_step(twin, opt, dtype_name="bfloat16", max_grad_norm=1.0)
+    trainer = pt.ColBERTTrainer(enc, learning_rate=1e-3, warmup_steps=2, total_steps=10)
+    host = trainer._tensorize(batches[0])
+    batch = dict(zip(host, enc._put_batch(*host.values())))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        opt.zero_grad(set_to_none=True)
+        step(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for triples in batches:
+        trainer.train_step(triples)  # the warm-up, then the capture and a replay
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = [trainer._launch(trainer._tensorize(t)) for t in batches]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for values, ready in pending:
+        ready.synchronize()
+        assert np.isfinite(values.numpy()).all()
+    assert trainer.programs.programs()[0].replays == 3
+
+
+@pytest.mark.cuda
+def test_a_failed_training_capture_raises(cuda_device, monkeypatch):
+    """A step that reads a value back cannot be captured: the key's second
+    launch raises, and so does the next; nothing runs the eager step in
+    their place (the parameters stay as the warm-up left them)."""
+    from colbert_torch.training import trainer as pt
+
+    enc, batches = _train_setup(cuda_device, n_batches=1)
+    loss_on_embeddings = pt.loss_on_embeddings
+
+    def syncing(*a, **kw):
+        loss, metrics = loss_on_embeddings(*a, **kw)
+        loss.item()
+        return loss, metrics
+
+    monkeypatch.setattr(pt, "loss_on_embeddings", syncing)
+    trainer = pt.ColBERTTrainer(enc, learning_rate=1e-3)
+    trainer.train_step(batches[0])  # the warm-up is eager: a read-back is allowed there
+    before = [p.detach().clone() for p in enc.model.parameters()]
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            trainer.train_step(batches[0])
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, p) for a, p in zip(before, enc.model.parameters()))
+    (prog,) = trainer.programs.programs()
+    assert prog.graph is None and prog.replays == 0
+
+
+@pytest.mark.cuda
+def test_a_non_capturable_optimizer_is_refused_on_the_card(cuda_device):
+    """A factory optimizer that is not capturable is refused at
+    construction, naming ``capturable=True``; built capturable, it trains
+    through the captured step as given."""
+    from colbert_torch.training import ColBERTTrainer
+
+    enc, batches = _train_setup(cuda_device, n_batches=3)
+    before = [p.detach().clone() for p in enc.model.parameters()]
+    with pytest.raises(ValueError, match="capturable=True"):
+        ColBERTTrainer(enc, optimizer=lambda p: torch.optim.Adam(p, lr=1e-3))
+    assert all(torch.equal(a, p) for a, p in zip(before, enc.model.parameters()))
+    trainer = ColBERTTrainer(enc, optimizer=lambda p: torch.optim.Adam(p, lr=1e-3,
+                                                                        capturable=True))
+    losses = [trainer.train_step(t)["loss"] for t in batches]
+    assert np.isfinite(losses).all()
+    assert trainer.programs.programs()[0].replays == 2
