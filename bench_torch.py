@@ -56,6 +56,7 @@ from colbert_torch.evaluation.metrics import set_recall_at_k as _recall
 from colbert_torch.evaluation.oracle import exhaustive_scores
 from colbert_torch.models.bert import BertConfig
 from colbert_torch.models.encoder import ColBERTEncoder
+from colbert_torch.ops import approx_maxsim as am
 from colbert_torch.ops import flash_attention as fa
 from colbert_torch.ops import fused_maxsim as fm
 from colbert_torch.utils.build import resolve_device
@@ -137,7 +138,8 @@ def sync(device: torch.device) -> None:
 def launches() -> dict:
     """The kernels' launch counts by variant so far."""
     return {"stage2": dict(fm.stage2_maxsim.variant_launches),
-            "flash": dict(fa.flash_attention.variant_launches)}
+            "flash": dict(fa.flash_attention.variant_launches),
+            "refine": dict(am.approx_maxsim.variant_launches)}
 
 
 def launches_since(before: dict) -> dict:
@@ -399,11 +401,15 @@ def serve_and_probe(encoder, cfg, tmp, passages, n) -> dict:
         f"exhaustive {out['self_s1_exhaustive']:.3f}")
     log("served stage-2 scores vs the exact MaxSim of each returned pid, max |diff|: "
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
-    out["stage2_launches"] = launches_since(before)["stage2"]
-    log(f"stage-2 launches in the serving stage by kernel {out['stage2_launches']}")
+    since = launches_since(before)
+    out["stage2_launches"], out["refine_launches"] = since["stage2"], since["refine"]
+    log(f"stage-2 launches in the serving stage by kernel {out['stage2_launches']}; refine "
+        f"kernel launches {out['refine_launches']}")
     if s.device.type == "cuda" and (out["stage2_launches"]["simt"]
                                     or not out["stage2_launches"]["mma"]):
         raise RuntimeError(f"stage-2 launches {out['stage2_launches']}, expected all mma")
+    if s.device.type == "cuda" and not out["refine_launches"]["table"]:
+        raise RuntimeError("no refine kernel launch in the serving stage's refined searches")
     return out
 
 

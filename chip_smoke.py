@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
 
-1. Builds both CUDA sources from ``colbert_torch/csrc/`` (stage-2
-   decompress+MaxSim and flash attention; one nvcc each, started together,
-   sm_90a) and prints the build time and ptxas's registers and spills per
-   kernel instantiation; the paths' instantiations must not spill: the
-   tensor-core flash kernel's bf16 hd=64 and the tensor-core stage-2
-   kernel's nbits 2.
+1. Builds the three CUDA sources from ``colbert_torch/csrc/`` (stage-2
+   decompress+MaxSim, flash attention and the refine; one nvcc each,
+   started together, sm_90a) and prints the build time and ptxas's
+   registers and spills per kernel instantiation; the paths'
+   instantiations must not spill: the tensor-core flash kernel's bf16
+   hd=64, the tensor-core stage-2 kernel's nbits 2 and the refine's
+   ``approx_maxsim_kernel<8>``.
 2. Holds the stage-2 kernels against their plain PyTorch version on the
    card at the serving path's stage-2 shapes (B=32, Lq=32, NC=1024,
    Ld=160, dim=128, nbits=2, K=32768) and at edge cases (nbits 1/4/8, byte
@@ -37,9 +38,17 @@
    fp32 product at the TF32 tensor-core peak; fp32 FMAs at the fp32 peak);
    then both kernels at B = 1, 8 and 32 queries x 1024 candidates. On
    the same batch's refine inputs (B=32 queries x 4,096 candidates) it
-   holds the refine on the card against the same function on the CPU
-   (1e-4) and times it beside a bytes bound (each valid token's code and
-   Lq table entries read once at 3.35 TB/s).
+   holds the refine on the card (the bf16 table product and the refine
+   kernel) against the same function on the CPU and against its plain
+   ``embedding_bag`` route on the card (1e-4), times the kernel route and
+   the plain route in turns (plain, kernel, kernel, plain) with CUDA
+   events, the table product and the kernel alone beside them, beside
+   three bounds: the function's (its inputs read once and its output
+   written once, or the table product's bf16 FLOPs), the design's (the
+   table written and read once) and the per-token figure (each valid
+   token's code and Lq table entries read once at 3.35 TB/s). Every
+   search of the serving passes, graphed and eager, is checked to have
+   made exactly one counted refine launch.
    On the same index and searcher:
    - ``[serve-batcher]``: 256 single queries from 16 threads through a
      ``BatchingSearcher`` (max_batch 32, max_wait 5 ms, two batches in
@@ -56,7 +65,9 @@
      returns (1e-4, TF32 off); ``tune_operating_point`` on the default grid
      at balance caps 1024 and 2048 with two timed repetitions, the table
      printed, the knobs restored after the sweep, ``apply`` then a search.
-   Every stage-2 launch of these phases is checked to be ``mma``.
+   Every stage-2 launch of these phases is checked to be ``mma``, and in
+   every in-process phase each search launch whose knobs run the refine
+   (counted by wrapping ``DeviceIndex._static_kwargs``) one refine launch.
 4. ``[flash]``: holds both flash-attention kernels against their plain
    version (the materialized fp32 softmax), each case checked to have run
    the kernel its dtype and head dim select (``mma``, tensor cores, for
@@ -194,17 +205,21 @@
    seven identical four-key ``index_build_passages_per_sec`` lines with a
    positive value, no flash launch in the headline build, 12 ``mma`` flash
    launches per ``flash_probe`` batch, every serving stage-2 launch
-   ``mma``; ``bench_mfu_torch.py 128``, ``bench_scale_torch.py 16384`` and
-   ``bench_sharded_torch.py`` over a 65,536-passage ``synthesize_index``
-   index on 4 shards of the card: exit 0 and the JSON summary with its
-   keys as the last line. Every stage-2 score ``bench_torch.py``'s serving
-   stage returns (B=128 and B=64 batches, the funnel's three points, the
-   self-retrieval probe) is within TOL of the exact MaxSim of its pid.
+   ``mma``, some refine launches but fewer than stage-2 launches (its
+   tuned points run without the refine); ``bench_mfu_torch.py 128``,
+   ``bench_scale_torch.py 16384`` and ``bench_sharded_torch.py`` over a
+   65,536-passage ``synthesize_index`` index on 4 shards of the card:
+   exit 0 and the JSON summary with its keys as the last line. Every
+   stage-2 score ``bench_torch.py``'s serving stage returns (B=128 and
+   B=64 batches, the funnel's three points, the self-retrieval probe) is
+   within TOL of the exact MaxSim of its pid.
    Prints each script's stderr, seconds and summary; the ``kernels``
    line's ``bench`` entries count only ``bench_torch.py``'s serving stage
-   (stage 2) and ``flash_probe`` (flash), as that script logs them.
+   (stage 2, the refine) and ``flash_probe`` (flash), as that script logs
+   them.
 13. Prints the card's name and power limit, a ``kernels`` JSON line (each
-   kernel's launches on the main path and by path), and as the last line
+   of the three kernels' launches on the main path and by path, its time,
+   its plain version's and its bound), and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. Without a GPU, or outside
@@ -570,17 +585,20 @@ def main_path(device, *, n_passages: int, bert_cfg, index_dir: str,
     if device.type == "cuda":
         torch.cuda.synchronize()
 
-    fm.stage2_maxsim.launches = 0
-    fm.stage2_maxsim.variant_launches.update(mma=0, simt=0)
+    reset_counts()
     results, dt, streamed, dt_stream = serve_pass(searcher, batches[1:])
-    launches = fm.stage2_maxsim.launches
-    by_variant = dict(fm.stage2_maxsim.variant_launches)
+    counts = search_counts()
+    launches = counts["launches"]
+    by_variant = {v: counts[v] for v in ("mma", "simt")}
     qps = batch * n_batches / dt
     route = "captured program" if device.type == "cuda" else "eager (CPU)"
     print(f"[serve] search_batch ({route}): {n_batches} x B={batch} in {dt:.4f}s -> "
           f"QPS {qps:.2f}; search_stream: {dt_stream:.4f}s -> QPS "
           f"{batch * n_batches / dt_stream:.2f}; stage2 kernel launches {launches} "
-          f"(by kernel {by_variant})")
+          f"(by kernel {by_variant}); refine kernel launches {counts['refine']} for "
+          f"{counts['refine_batches']} batches with the refine on")
+    # every batch of both passes runs the refine at the default knobs
+    check_search_launches(device, counts, "serve", refine_batches=2 * n_batches)
 
     for (p, s), (p2, s2) in zip(results, streamed):
         check(p.shape == (batch, 10) and s.shape == (batch, 10), "result shape")
@@ -633,8 +651,10 @@ def main_path(device, *, n_passages: int, bert_cfg, index_dir: str,
     timing = time_stage2(recorded["args"], recorded["kw"]) if device.type == "cuda" else {}
     if device.type == "cuda":
         timing.update(refine_check(*recorded["refine"]))
+        timing.update(stage_costs(searcher, *recorded["refine"]))
     return dict(qps=qps, stream_qps=batch * n_batches / dt_stream,
-                launches=launches, by_variant=by_variant, stages_ms=stages,
+                launches=launches, by_variant=by_variant, refine_launches=counts["refine"],
+                stages_ms=stages,
                 rescore_err=err, encoder=enc, searcher=searcher, n_words=n_words,
                 program=program, **timing)
 
@@ -675,10 +695,20 @@ def program_phase(searcher, batches, graphed, graphed_s) -> dict:
     queries = batches[1:]
     n = sum(len(b) for b in queries)
     dix = searcher.device_index
+    reset_counts()
     with eager_route(searcher):
         e1 = serve_pass(searcher, queries)
         e2 = serve_pass(searcher, queries)
+    eager_counts = search_counts()
+    reset_counts()
     g2 = serve_pass(searcher, queries)
+    graphed_counts = search_counts()
+    # each pass searches every batch twice (search_batch, search_stream),
+    # every search with the refine on: one refine launch each, eager or replayed
+    check_search_launches(searcher.device, eager_counts, "serve eager",
+                          refine_batches=4 * len(queries))
+    check_search_launches(searcher.device, graphed_counts, "serve graphed",
+                          refine_batches=2 * len(queries))
     turns = {"graphed": [graphed_s, (g2[1], g2[3])], "eager": [(e1[1], e1[3]), (e2[1], e2[3])]}
     for (p, s), (pe, se), (p2, s2) in zip(graphed, e1[0], g2[0]):
         why = agree_up_to_ties(p, s, pe, se, TOL)
@@ -718,7 +748,9 @@ def program_phase(searcher, batches, graphed, graphed_s) -> dict:
           f"launch host ms median {float(np.median(launch_ms)):.4f} of 10; "
           f"programs {stats['held']} held, {stats['built']} built, capture "
           f"{stats['capture_s']:.3f}s, pool {stats['pool_bytes'] / 2**20:.1f} MiB, replays "
-          f"{stats['replays']}; one launch under sync debug mode 'error' passed; device busy "
+          f"{stats['replays']}; refine kernel launches eager {eager_counts['refine']} and "
+          f"graphed {graphed_counts['refine']}, one per batch; one launch under sync debug "
+          f"mode 'error' passed; device busy "
           f"share graphed {graphed_prof['busy_share']} ({graphed_prof['device_busy_ms']:.3f} of "
           f"{graphed_prof['wall_ms']:.3f} ms), eager {eager_prof['busy_share']} "
           f"({eager_prof['device_busy_ms']:.3f} of {eager_prof['wall_ms']:.3f} ms) on "
@@ -732,14 +764,48 @@ def program_phase(searcher, batches, graphed, graphed_s) -> dict:
                 wall_ms={"graphed": graphed_prof["wall_ms"], "eager": eager_prof["wall_ms"]})
 
 
+def refine_bounds(index, Q, pids) -> dict:
+    """The least time, in ms at the H100's published peaks, for the refine
+    on these inputs -> {"function": (ms, "bytes" or "operations"),
+    "design": (ms, ...), "token": ms}. ``function``: what the function must
+    move (Q, the (B, W) offsets and doclens, the valid tokens' codes and the
+    centroids read once, the (B, W) output written once) against what its
+    table formulation computes (2*B*K*Lq*dim bf16 FLOPs on the tensor
+    cores), the larger; ``design``: the kernel's design, whose (B, K, Lq)
+    fp32 table is written and read once beside the codes, offsets, doclens
+    and output, against the same FLOPs; ``token``: the per-token figure, each
+    valid token's code and its Lq table entries read once."""
+    B, W = pids.shape
+    Lq, dim = Q.shape[1:]
+    K = index.centroids.shape[0]
+    tokens = int(index.doclens[pids].sum())
+    flops = 2 * B * K * Lq * dim
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    pairs = B * W * (8 + 4 + 4)  # offsets, doclens, output
+    moved = {"function": Q.numel() * 4 + pairs + tokens * 4 + K * dim * 4,
+             "design": 2 * B * K * Lq * 4 + pairs + tokens * 4}
+    out = {}
+    for name, nbytes in moved.items():
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        out[name] = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
+    out["token"] = tokens * 4 * (1 + Lq) / PEAK_BYTES * 1e3
+    out["tokens"] = tokens
+    return out
+
+
 def refine_check(index, Q, pids) -> dict:
-    """On one served batch's refine inputs: the refine on the card against
-    the same function on the CPU (TOL), and its time beside a bytes bound
-    (each valid token's code and its Lq table entries read once)."""
+    """On one served batch's refine inputs: the refine on the card (the
+    table product and the kernel, through ``device_index._approx_maxsim``)
+    against the same function on the CPU and against its plain
+    ``embedding_bag`` route on the card (TOL); the kernel route and the
+    plain route timed in turns (plain, kernel, kernel, plain) with CUDA
+    events, the table product and the kernel alone beside them, and the
+    three bounds of :func:`refine_bounds`."""
     import types
 
     import torch
 
+    from colbert_torch.ops import approx_maxsim as am
     from colbert_torch.retrieval import device_index as di
 
     with torch.no_grad():
@@ -750,21 +816,97 @@ def refine_check(index, Q, pids) -> dict:
         t0 = time.perf_counter()
         want = di._approx_maxsim(cpu_index, Q.cpu(), pids.cpu())
         cpu_s = time.perf_counter() - t0
-        got = di._approx_maxsim(index, Q, pids).cpu()
-        err = float((got - want).abs().max())
-        new1 = time_ms(lambda: di._approx_maxsim(index, Q, pids), 10)
-        new2 = time_ms(lambda: di._approx_maxsim(index, Q, pids), 10)
+
+        def kernel():
+            return di._approx_maxsim(index, Q, pids)
+
+        def plain():
+            return am.approx_maxsim_plain(Q, index.emb_offsets[pids], index.doclens[pids],
+                                          index.codes, index.centroids,
+                                          max_doclen=index.max_doclen)
+
+        got = kernel()
+        err = float((got.cpu() - want).abs().max())
+        err_plain = float((got - plain()).abs().max())
+        p1 = time_ms(plain, 5)
+        k1, k2 = time_ms(kernel, 20), time_ms(kernel, 20)
+        p2 = time_ms(plain, 5)
+        offs, dls = index.emb_offsets[pids], index.doclens[pids]
+        table = am.score_table(Q, index.centroids)
+        table_ms = time_ms(lambda: am.score_table(Q, index.centroids), 20)
+        gather_ms = time_ms(lambda: am._launch(table, offs, dls, index.codes), 20)
     B, W = pids.shape
     Lq = Q.shape[1]
-    tokens = int(index.doclens[pids].sum())
-    bound = tokens * 4 * (1 + Lq) / PEAK_BYTES * 1e3
+    bounds = refine_bounds(index, Q, pids)
     chunk = max(1, di.REFINE_CHUNK_BYTES // di.refine_column_bytes(B, index.max_doclen, Lq))
     print(f"[serve] refine on one batch's inputs (B={B} W={W} Ld={index.max_doclen} Lq={Lq}, "
-          f"{-(-W // chunk)} chunks of {chunk} columns, {tokens} valid tokens): card vs CPU "
-          f"max_abs_err={err:.3e} (limit {TOL}; CPU {cpu_s:.2f}s); ms={new1:.4f},{new2:.4f} "
-          f"bound_ms={bound:.4f} (bytes)")
+          f"{bounds['tokens']} valid tokens): kernel route (table product + kernel) vs CPU "
+          f"max_abs_err={err:.3e}, vs the plain route on the card {err_plain:.3e} (limit {TOL}; "
+          f"CPU {cpu_s:.2f}s); in turns plain_ms={p1:.4f},{p2:.4f} ({-(-W // chunk)} "
+          f"embedding_bag chunks of {chunk} columns) kernel_ms={k1:.4f},{k2:.4f} (table "
+          f"product {table_ms:.4f}, kernel alone {gather_ms:.4f}); bound_ms="
+          f"{bounds['function'][0]:.4f} ({bounds['function'][1]}; the function) design_bound_ms="
+          f"{bounds['design'][0]:.4f} ({bounds['design'][1]}; the table written and read once) "
+          f"token_bound_ms={bounds['token']:.4f} (bytes; each token's code and Lq table "
+          f"entries) on {card_line()}")
     check(np.isfinite(err) and err <= TOL, f"refine: card vs CPU {err} > {TOL}")
-    return dict(refine_err=err, refine_ms=(new1 + new2) / 2, refine_bound_ms=bound)
+    check(np.isfinite(err_plain) and err_plain <= TOL,
+          f"refine: kernel vs plain route on the card {err_plain} > {TOL}")
+    return dict(refine_err=err, refine_plain_err=err_plain, refine_ms=(k1 + k2) / 2,
+                refine_plain_ms=(p1 + p2) / 2, refine_table_ms=table_ms,
+                refine_gather_ms=gather_ms, refine_bound_ms=bounds["function"][0],
+                refine_bound_by=bounds["function"][1],
+                refine_design_bound_ms=bounds["design"][0],
+                refine_token_bound_ms=bounds["token"], refine_tokens=bounds["tokens"])
+
+
+def graph_replay_ms(fn, reps: int = 20) -> float:
+    """``fn`` captured alone into a CUDA graph (after one eager run on the
+    capture stream) -> the replay's ms, CUDA-event timed."""
+    import torch
+
+    from colbert_torch.retrieval.program import capture
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with capture(graph, stream):
+        fn()
+    return time_ms(graph.replay, reps)
+
+
+def stage_costs(searcher, index, Q, pids) -> dict:
+    """The tuner's refine weight (ROADMAP C15) re-measured on captured
+    programs: stage 1 and the refine of one served batch (``pids``, its
+    refine window, and ``Q``), each captured alone on that batch's inputs
+    and replayed -> ms per stage-1 entry (Lq x nprobe x cell_cap per query),
+    ms per refine row (window x max doclen per query, as the tuner's
+    ``cost()`` counts them) and their ratio, the weight of a refine row in
+    stage-1 entries."""
+    import torch
+
+    from colbert_torch.retrieval import device_index as di
+
+    B, Lq = Q.shape[:2]
+    st = index._static_kwargs(Lq, **searcher._search_kwargs(10))
+    with torch.no_grad():
+        probe, cells = di._probe_topk(index, Q, st["nprobe"])
+        stage1_ms = graph_replay_ms(lambda: di._stage1(
+            index, probe, cells, cell_cap=st["cell_cap"],
+            centroid_threshold=st["centroid_threshold"]))
+        refine_ms = graph_replay_ms(lambda: di._approx_maxsim(index, Q, pids))
+    entries = Lq * st["nprobe"] * st["cell_cap"]
+    rows = pids.shape[1] * index.max_doclen
+    weight = (refine_ms / rows) / (stage1_ms / entries)
+    print(f"[serve] captured alone on one batch's inputs (B={B}): stage 1 {stage1_ms:.4f} ms "
+          f"for {entries} entries per query, the refine {refine_ms:.4f} ms for {rows} rows "
+          f"per query -> a refine row weighs {weight:.4f} stage-1 entries (the tuner's "
+          f"_W_REFINE_ROW: 0.13) on {card_line()}")
+    return dict(refine_cost_stage1_ms=stage1_ms, refine_cost_refine_ms=refine_ms,
+                refine_cost_weight=weight)
 
 
 def device_profile(fn) -> dict:
@@ -1229,20 +1371,18 @@ def profile_build_steps(enc, batch, index_dir: str) -> None:
 
 def build_search(enc, passages, index_dir: str, *, batch: int = BATCH) -> dict:
     """Two query batches over the built index: shapes, pid range, finite and
-    descending scores, stage-2 launches; top-1 self-retrieval (printed)."""
-    from colbert_torch.ops import fused_maxsim as fm
+    descending scores, stage-2 and refine launches; top-1 self-retrieval
+    (printed)."""
     from colbert_torch.retrieval.searcher import Searcher
 
     searcher = Searcher(index_dir, encoder=enc, device=enc.device)
     rng = np.random.default_rng(5)
     pids = rng.choice(len(passages), size=2 * batch, replace=False)
     queries = [" ".join(passages[p].split()[:40]) for p in pids]
-    fm.stage2_maxsim.launches = 0
-    fm.stage2_maxsim.variant_launches.update(mma=0, simt=0)
+    reset_counts()
     results = [searcher.search_batch(queries[i:i + batch], k=10)
                for i in range(0, 2 * batch, batch)]
-    launches = fm.stage2_maxsim.launches
-    by_variant = dict(fm.stage2_maxsim.variant_launches)
+    counts = search_counts()
     hits = 0
     for i, (p, s) in enumerate(results):
         check(p.shape == (batch, 10) and s.shape == (batch, 10), "build-search: shape")
@@ -1250,13 +1390,11 @@ def build_search(enc, passages, index_dir: str, *, batch: int = BATCH) -> dict:
         check(bool(np.isfinite(s).all()), "build-search: non-finite scores")
         check(bool((np.diff(s, axis=1) <= 1e-6).all()), "build-search: not descending")
         hits += int((p[:, 0] == pids[i * batch:(i + 1) * batch]).sum())
-    print(f"[build-search] 2 x {batch} queries; stage-2 launches {launches} (by kernel "
-          f"{by_variant}); top-1 self-retrieval {hits}/{2 * batch} (random weights: "
-          f"information only)")
-    if enc.device.type == "cuda":
-        check(launches > 0 and by_variant == {"mma": launches, "simt": 0},
-              f"build-search: stage-2 launches by kernel {by_variant}, expected all mma")
-    return dict(search_launches=launches, self_top1=hits / (2 * batch))
+    print(f"[build-search] 2 x {batch} queries; stage-2 and refine launches {counts}; top-1 "
+          f"self-retrieval {hits}/{2 * batch} (random weights: information only)")
+    check_search_launches(enc.device, counts, "build-search")
+    return dict(search_launches=counts["launches"], search_refine_launches=counts["refine"],
+                self_top1=hits / (2 * batch))
 
 
 # ---------------------------------------------------------------------------
@@ -1264,27 +1402,71 @@ def build_search(enc, passages, index_dir: str, *, batch: int = BATCH) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def stage2_counts() -> dict:
+# search launches of single-index searches whose knobs run the refine,
+# counted by count_refine_batches' wrapper of DeviceIndex._static_kwargs
+REFINE_BATCHES = {"n": 0}
+
+
+def count_refine_batches() -> None:
+    """Make every single-index search launch (eager, or a captured
+    program's launch or replay) whose static knobs run the refine add one to
+    ``REFINE_BATCHES``: ``DeviceIndex._static_kwargs``, which each launch
+    calls once, wrapped (once per process). The sharded backend never calls
+    it: ``[multidevice]`` counts its batches itself."""
+    from colbert_torch.retrieval.device_index import DeviceIndex
+
+    static = DeviceIndex._static_kwargs
+    if getattr(static, "counts_refine", False):
+        return
+
+    def counting(self, Lq, k, **kw):
+        out = static(self, Lq, k, **kw)
+        if out["stage1_refine"] and out["ncandidates"] < out["max_candidates"]:
+            REFINE_BATCHES["n"] += 1
+        return out
+
+    counting.counts_refine = True
+    DeviceIndex._static_kwargs = counting
+
+
+def search_counts() -> dict:
+    """The stage-2 launches by kernel (``mma``, ``simt``, ``launches``), the
+    refine kernel's launches (``refine``) and the search launches that ran
+    the refine (``refine_batches``) since :func:`reset_counts`."""
+    from colbert_torch.ops import approx_maxsim as am
     from colbert_torch.ops import fused_maxsim as fm
 
-    return dict(fm.stage2_maxsim.variant_launches, launches=fm.stage2_maxsim.launches)
+    return dict(fm.stage2_maxsim.variant_launches, launches=fm.stage2_maxsim.launches,
+                refine=am.approx_maxsim.launches, refine_batches=REFINE_BATCHES["n"])
 
 
 def reset_counts() -> None:
+    from colbert_torch.ops import approx_maxsim as am
     from colbert_torch.ops import flash_attention as fa
     from colbert_torch.ops import fused_maxsim as fm
 
+    count_refine_batches()
     fm.stage2_maxsim.launches = 0
     fm.stage2_maxsim.variant_launches.update(mma=0, simt=0)
     fa.flash_attention.launches = 0
     fa.flash_attention.variant_launches.update(mma=0, simt=0)
+    am.approx_maxsim.launches = 0
+    am.approx_maxsim.variant_launches.update(table=0)
+    REFINE_BATCHES["n"] = 0
 
 
-def check_stage2_all_mma(device, counts: dict, phase: str) -> None:
-    """On the card every stage-2 launch of a phase is the ``mma`` kernel."""
+def check_search_launches(device, counts: dict, phase: str, refine_batches=None) -> None:
+    """On the card every stage-2 launch of a phase is the ``mma`` kernel,
+    and every search launch that ran the refine made exactly one counted
+    launch of the refine kernel (``refine_batches``: those launches, by
+    default as counted by :func:`count_refine_batches`)."""
     if device.type == "cuda":
         check(counts["launches"] > 0 and counts["mma"] == counts["launches"]
               and counts["simt"] == 0, f"{phase}: stage-2 launches by kernel {counts}")
+        want = counts["refine_batches"] if refine_batches is None else refine_batches
+        check(counts["refine"] == want,
+              f"{phase}: {counts['refine']} refine kernel launches for {want} searches "
+              f"that ran the refine")
 
 
 def program_replays(searcher) -> int:
@@ -1364,7 +1546,7 @@ def serve_batcher(searcher, n_words: int) -> dict:
             stats = dict(batcher.stats)
         finally:
             batcher.close()
-    counts = stage2_counts()
+    counts = search_counts()
     replays = program_replays(searcher) - replays
     print(f"[serve-batcher] {len(queries)} queries from {BATCHER_THREADS} threads in {dt:.4f}s "
           f"-> {len(queries) / dt:.2f} queries/s in process; stats {stats}; batch sizes "
@@ -1375,7 +1557,7 @@ def serve_batcher(searcher, n_words: int) -> dict:
     check(len(results) == len(queries), "serve-batcher: a query got no result")
     check(stats["queries"] == len(queries) and stats["batches"] < len(queries)
           and stats["max_batch_seen"] <= BATCH, f"serve-batcher: stats {stats}")
-    check_stage2_all_mma(searcher.device, counts, "serve-batcher")
+    check_search_launches(searcher.device, counts, "serve-batcher")
     n = check_against_direct(searcher, batches, results, "serve-batcher")
     # information: the same queries in fixed batches of 32
     same = 0
@@ -1389,6 +1571,7 @@ def serve_batcher(searcher, n_words: int) -> dict:
           f"at {TOL} ({n} batches); against fixed batches of {BATCH}: {same}/{len(queries)} "
           f"agree (information)")
     return dict(batcher_qps=len(queries) / dt, batcher_launches=counts["launches"],
+                batcher_refine_launches=counts["refine"],
                 batcher_batches=stats["batches"])
 
 
@@ -1435,7 +1618,7 @@ def serve_http(searcher, n_words: int) -> dict:
             server.shutdown()
             server.batcher.close()
             thread.join(timeout=60)
-    counts = stage2_counts()
+    counts = search_counts()
     replays = program_replays(searcher) - replays
     codes = [r[0] for r in replies] + [batch_reply[0], health[0], stats[0]]
     failed = [(c, r) for c, r in replies + [batch_reply, health, stats] if c != 200]
@@ -1452,11 +1635,12 @@ def serve_http(searcher, n_words: int) -> dict:
     results = {q: (r[1]["pids"], r[1]["scores"]) for q, r in zip(single, replies)}
     results.update({q: (p, s) for q, p, s in zip(multi, batch_reply[1]["pids"],
                                                    batch_reply[1]["scores"])})
-    check_stage2_all_mma(searcher.device, counts, "serve-http")
+    check_search_launches(searcher.device, counts, "serve-http")
     n = check_against_direct(searcher, batches, results, "serve-http")
     print(f"[serve-http] every reply equals direct search_batch of its batch up to ties at "
           f"{TOL} ({n} batches)")
-    return dict(http_rps=len(single) / dt, http_launches=counts["launches"])
+    return dict(http_rps=len(single) / dt, http_launches=counts["launches"],
+                http_refine_launches=counts["refine"])
 
 
 def tune_phase(searcher, n_words: int) -> dict:
@@ -1514,14 +1698,14 @@ def tune_phase(searcher, n_words: int) -> dict:
          cfg.refine_width_factor) = saved
         if searcher._balance_cap(cfg.ivf_balance_cap) != searcher._balance_cap(before[4]):
             searcher.set_balance_cap(before[4])
-    counts = stage2_counts()
+    counts = search_counts()
     print(f"[tune] chosen {res.chosen.point.label()}, cap {res.chosen.balance_cap}; applied "
           f"and searched; stage-2 launches {counts}")
-    check_stage2_all_mma(searcher.device, counts, "tune")
+    check_search_launches(searcher.device, counts, "tune")
     if searcher.device.type == "cuda":
         check(not torch.backends.cuda.matmul.allow_tf32, "tune: TF32 must stay off")
     return dict(oracle_s=dt_oracle, oracle_err=err, tune_s=dt_tune,
-                tune_launches=counts["launches"])
+                tune_launches=counts["launches"], tune_refine_launches=counts["refine"])
 
 
 # ---------------------------------------------------------------------------
@@ -1576,7 +1760,7 @@ def multidevice_serve(searcher, n_words: int, index_dir: str) -> dict:
     t0 = time.perf_counter()
     results = [sh.search_batch(b, k=10) for b in batches[1:]]
     dt = time.perf_counter() - t0
-    counts = stage2_counts()
+    counts = search_counts()
     qps = BATCH * N_BATCHES / dt
     tracer = Tracer()
     sh.tracer = tracer
@@ -1585,14 +1769,16 @@ def multidevice_serve(searcher, n_words: int, index_dir: str) -> dict:
     sh.tracer = None
     stages = {k: v["seconds"] / N_BATCHES * 1e3 for k, v in tracer.as_dict().items()}
     print(f"[multidevice] sharded search_batch: {N_BATCHES} x B={BATCH} in {dt:.4f}s -> QPS "
-          f"{qps:.2f}; stage-2 launches {counts} ({MD_SHARDS} shards x {N_BATCHES} batches) "
+          f"{qps:.2f}; stage-2 and refine launches {counts} ({MD_SHARDS} shards x "
+          f"{N_BATCHES} batches) "
           f"on {card_line()}")
     print("[multidevice] per-stage ms per batch, summed over the shards (traced, device "
           "synchronized per stage): " + json.dumps({k: round(v, 4) for k, v in stages.items()}))
     if dev.type == "cuda":
-        check(counts == {"mma": MD_SHARDS * N_BATCHES, "simt": 0,
-                         "launches": MD_SHARDS * N_BATCHES},
+        check(counts["launches"] == MD_SHARDS * N_BATCHES,
               f"multidevice: stage-2 launches {counts}, expected {MD_SHARDS} mma per batch")
+    # every shard of every batch runs the refine at the default knobs
+    check_search_launches(dev, counts, "multidevice", refine_batches=MD_SHARDS * N_BATCHES)
 
     Q = sh.encoder.encode_queries_device(batches[1])
     oracle = exhaustive_scores(sh, Q)
@@ -1638,7 +1824,7 @@ def multidevice_serve(searcher, n_words: int, index_dir: str) -> dict:
               "multidevice: process group")
         reset_counts()
         pn, sn = sh.search_batch(batches[1], k=10)
-        nccl_counts = stage2_counts()
+        nccl_counts = search_counts()
     finally:
         dist.destroy_process_group()
     why = agree_up_to_ties(p, s, pn, sn, TOL)
@@ -1646,6 +1832,7 @@ def multidevice_serve(searcher, n_words: int, index_dir: str) -> dict:
           f"through {backend}): equal up to ties {why is None}; stage-2 launches {nccl_counts}")
     check(why is None, f"multidevice: {backend} search differs: {why}")
     return dict(md_qps=qps, md_stages_ms=stages, md_launches=counts["launches"],
+                md_refine_launches=counts["refine"],
                 md_oracle_err=err, md_overlap10=float(np.mean(overlap)),
                 md_batcher_qps=len(queries) / dt_b, md_load_s=load_s)
 
@@ -1927,12 +2114,13 @@ def update_phase(enc, passages, index_dir: str) -> dict:
               "information only) " + json.dumps(report))
     finally:
         batcher.close()
-    counts = stage2_counts()
+    counts = search_counts()
     print("[update] seconds " + json.dumps({k: round(v, 4) for k, v in seconds.items()})
           + f"; stage-2 launches {counts}")
-    check_stage2_all_mma(dev, counts, "update")
+    check_search_launches(dev, counts, "update")
     return dict(update_seconds=seconds, update_flash_launches=flash["launches"],
-                update_launches=counts["launches"], update_eval=report,
+                update_launches=counts["launches"], update_refine_launches=counts["refine"],
+                update_eval=report,
                 update_add_pps=len(added) / seconds["add"])
 
 
@@ -2416,7 +2604,7 @@ def train_phase(device, *, bert_cfg, n_passages: int = TRAIN_PASSAGES,
     reset_counts()
     results = [searcher.search_batch(queries[i:i + BATCH], k=10)
                for i in range(0, len(queries), BATCH)]
-    counts = stage2_counts()
+    counts = search_counts()
     # the same batches through the eager entry, its query encode recorded:
     # the embeddings are the trained model's, and the served results equal
     # these up to ties
@@ -2457,11 +2645,12 @@ def train_phase(device, *, bert_cfg, n_passages: int = TRAIN_PASSAGES,
     check(moved, "train: the searcher's query embeddings equal the untrained model's")
     check(p.shape == (TRAIN_QUERIES, 10) and all(np.isfinite(r[1]).all() for r in results),
           "train: result shape or scores")
-    check_stage2_all_mma(device, counts, "train")
+    check_search_launches(device, counts, "train")
     shutil.rmtree(index_dir, ignore_errors=True)
     seconds = time.perf_counter() - t_phase
     print(f"[train] phase seconds {seconds:.1f}")
-    out.update(train_search_launches=counts["launches"], train_flash_launches=flash,
+    out.update(train_search_launches=counts["launches"], train_refine_launches=counts["refine"],
+               train_flash_launches=flash,
                train_success_at_1=s1, train_success_at_10=s10, train_index_s=build_s,
                train_phase_s=seconds)
     return out
@@ -2706,7 +2895,7 @@ def examples_phase(device, work_dir: str, *, n_passages: int = EXAMPLES_PASSAGES
     os.makedirs(root)
     dev_args = [] if device.type == "cuda" else ["--device", "cpu"]
     seconds = {}
-    counts, flash = dict(launches=0, mma=0, simt=0), 0
+    counts, flash = dict.fromkeys(("launches", "mma", "simt", "refine", "refine_batches"), 0), 0
 
     def step(name, fn):
         """Run one entry point: its seconds, and its kernel launches with
@@ -2719,7 +2908,7 @@ def examples_phase(device, work_dir: str, *, n_passages: int = EXAMPLES_PASSAGES
         if device.type == "cuda":
             torch.cuda.synchronize()
         seconds[name] = time.perf_counter() - t0
-        for key, n in stage2_counts().items():
+        for key, n in search_counts().items():
             counts[key] += n
         flash += fa.flash_attention.launches
         print(f"[examples] {name}: {seconds[name]:.2f}s")
@@ -2863,8 +3052,9 @@ def examples_phase(device, work_dir: str, *, n_passages: int = EXAMPLES_PASSAGES
         shutil.rmtree(root, ignore_errors=True)
     print("[examples] seconds " + json.dumps({k: round(v, 4) for k, v in seconds.items()})
           + f"; stage-2 launches {counts}; flash launches {flash}")
-    check_stage2_all_mma(device, counts, "examples")
+    check_search_launches(device, counts, "examples")
     return dict(examples_seconds=seconds, examples_launches=counts["launches"],
+                examples_refine_launches=counts["refine"],
                 examples_flash_launches=flash, examples_eval=report)
 
 
@@ -2937,7 +3127,7 @@ def quality_phase(device, *, n_passages: int = QUALITY_PASSAGES,
         dt = time.perf_counter() - t0
     finally:
         quality.exhaustive_scores, DeviceIndex.search_Q_batch = oracle, search
-    counts = stage2_counts()
+    counts = search_counts()
     flash = fa.flash_attention.launches
     # one search, or more where another point has the same arguments
     check(len(seen["quality-first"]) >= 1, "quality: no search at the quality-first point")
@@ -2959,8 +3149,9 @@ def quality_phase(device, *, n_passages: int = QUALITY_PASSAGES,
     check(all(summary[k] > 0 for k in ("qps_b64_quality", "qps_b64_quality_rw2",
                                        "qps_b64_probes_no_refine", "qps_b64_tuned")),
           "quality: a QPS is not positive")
-    check_stage2_all_mma(device, counts, "quality")
+    check_search_launches(device, counts, "quality")
     return dict(quality=summary, quality_s=dt, quality_launches=counts["launches"],
+                quality_refine_launches=counts["refine"],
                 quality_flash_launches=flash, quality_oracle_err=err)
 
 
@@ -3028,9 +3219,12 @@ def bench_phase(device, work_dir: str) -> dict:
     check(fl["flash_launches"] == {"mma": want, "simt": 0},
           f"[bench] flash_probe launches {fl['flash_launches']}, expected {want} mma "
           f"({fl['layers']} per batch)")
-    s2 = serve["stage2_launches"]
+    s2, rf = serve["stage2_launches"], serve["refine_launches"]["table"]
     check(not on_card or (s2["mma"] > 0 and s2["simt"] == 0),
           f"[bench] serving stage-2 launches {s2}, expected all mma")
+    # the stage's refined searches launch the refine kernel, at most once each
+    check(not on_card or 0 < rf < s2["mma"],
+          f"[bench] serving refine launches {rf} beside {s2['mma']} stage-2 launches")
     errs = serve["stage2_vs_oracle"]
     check(len(errs) == 6 and all(np.isfinite(e) and e <= TOL for e in errs.values()),
           f"[bench] serving stage-2 scores vs the exact MaxSim, max |diff| {errs} (limit {TOL})")
@@ -3062,6 +3256,7 @@ def bench_phase(device, work_dir: str) -> dict:
     check(sharded["n_passages"] == BENCH_SHARDED_PASSAGES and sharded["qps_one_card"] > 0,
           f"[bench] sharded summary {sharded}")
     out["stage2_launches"] = s2["mma"] + s2["simt"]
+    out["refine_launches"] = rf
     out["flash_launches"] = fl["flash_launches"]["mma"] + fl["flash_launches"]["simt"]
     print(f"[bench] seconds {json.dumps({k: round(v, 1) for k, v in out['seconds'].items()})}; "
           f"headline {json.dumps(head)} on {card_line()}")
@@ -3069,13 +3264,14 @@ def bench_phase(device, work_dir: str) -> dict:
 
 
 def kernel_label(mangled: str) -> str:
-    """``flash_mma_kernel<bf16,64>`` (``stage2_mma_kernel<2>``) for the
+    """``flash_mma_kernel<bf16,64>`` (``stage2_mma_kernel<2>``,
+    ``approx_maxsim_kernel<8>``) for the
     mangled name of that instantiation of one of the repo's kernels, else
     the name as it is."""
     import re
 
-    m = re.search(r"\d+(flash_mma_kernel|flash_kernel|stage2_mma_kernel|stage2_kernel)"
-                  r"I(.+?)EEv", mangled)
+    m = re.search(r"\d+(flash_mma_kernel|flash_kernel|stage2_mma_kernel|stage2_kernel|"
+                  r"approx_maxsim_kernel)I(.+?)EEv", mangled)
     if m is None:
         return mangled
     args = re.sub(r"Li(\d+)E", r",\1", m.group(2)).lstrip(",")
@@ -3123,6 +3319,7 @@ def main() -> int:
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
     from colbert_torch.models.bert import BertConfig
+    from colbert_torch.ops import approx_maxsim as am
     from colbert_torch.ops import flash_attention as fa
     from colbert_torch.ops import fused_maxsim as fm
     from colbert_torch.utils.build import BUILD_DIR
@@ -3130,11 +3327,12 @@ def main() -> int:
 
     # one nvcc per kernel source, started together; always from the sources
     # (a library left by an earlier run would hide ptxas's report)
-    for so in ("libstage2_maxsim.so", "libflash_attention.so"):
+    for so in ("libstage2_maxsim.so", "libflash_attention.so", "libapprox_maxsim.so"):
         if os.path.exists(os.path.join(BUILD_DIR, so)):
             os.remove(os.path.join(BUILD_DIR, so))
     t0 = time.perf_counter()
-    kernels_src = {"stage2_maxsim.cu": fm.build_kernel, "flash_attention.cu": fa.build_kernel}
+    kernels_src = {"stage2_maxsim.cu": fm.build_kernel, "flash_attention.cu": fa.build_kernel,
+                   "approx_maxsim.cu": am.build_kernel}
     with ThreadPoolExecutor(len(kernels_src)) as ex:
         logs = dict(zip(kernels_src, ex.map(lambda build: build(), kernels_src.values())))
     print(f"[build] {', '.join(kernels_src)} built in {time.perf_counter() - t0:.1f}s")
@@ -3143,7 +3341,8 @@ def main() -> int:
             print(f"[build] {src}: {name}: {spills}; {regs}")
     no_spill = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
     for src, path_kernel in (("flash_attention.cu", "flash_mma_kernel<bf16,64>"),
-                             ("stage2_maxsim.cu", "stage2_mma_kernel<2>")):
+                             ("stage2_maxsim.cu", "stage2_mma_kernel<2>"),
+                             ("approx_maxsim.cu", "approx_maxsim_kernel<8>")):
         found = [spills for name, spills, _ in ptxas_resources(logs[src]) if name == path_kernel]
         check(found == [no_spill], f"{path_kernel}: ptxas reports {found}")
 
@@ -3155,6 +3354,9 @@ def main() -> int:
                        index_dir=index_dir, n_batches=SERVE_BATCHES)
         check(mp["launches"] > 0 and mp["by_variant"] == {"mma": mp["launches"], "simt": 0},
               f"stage-2 launches on the main path by kernel {mp['by_variant']}, expected all mma")
+        check(mp["refine_launches"] == mp["launches"] > 0,
+              f"refine launches on the main path {mp['refine_launches']}, expected one per "
+              f"batch ({mp['launches']})")
         searcher = mp.pop("searcher")
         live = serve_batcher(searcher, mp["n_words"])
         live.update(serve_http(searcher, mp["n_words"]))
@@ -3219,7 +3421,8 @@ def main() -> int:
                       "update_seconds": live["update_seconds"],
                       "update_eval": live["update_eval"],
                       "train": {k: v for k, v in tr.items()
-                                if k not in ("train_search_launches", "train_flash_launches")},
+                                if k not in ("train_search_launches", "train_flash_launches",
+                                             "train_refine_launches")},
                       "examples_seconds": ex["examples_seconds"],
                       "examples_eval": ex["examples_eval"], "quality": ql["quality"],
                       "quality_s": ql["quality_s"],
@@ -3260,6 +3463,26 @@ def main() -> int:
                           "multidevice": md["md_flash_launches"],
                           "train-mesh": tm["mesh_launches"]["flash_attention"],
                           "bench: bench_torch.py flash_probe": bn["flash_launches"]},
+    ), dict(
+        name="approx_maxsim", route="cuda", variant="warp-per-candidate over a bf16 table",
+        source="colbert_torch/csrc/approx_maxsim.cu",
+        replaces="colbert_tpu/retrieval/device_index.py:878",
+        launches=mp["refine_launches"], max_abs_err=max(mp["refine_err"], mp["refine_plain_err"]),
+        ms=mp["refine_ms"], kernel_ms=mp["refine_gather_ms"], table_ms=mp["refine_table_ms"],
+        plain_ms=mp["refine_plain_ms"], bound_ms=mp["refine_bound_ms"],
+        bound_by=mp["refine_bound_by"], design_bound_ms=mp["refine_design_bound_ms"],
+        token_bound_ms=mp["refine_token_bound_ms"], library_ms=None,
+        launches_by_path={"serve": mp["refine_launches"],
+                          "serve-batcher": live["batcher_refine_launches"],
+                          "serve-http": live["http_refine_launches"],
+                          "tune": live["tune_refine_launches"],
+                          "update": live["update_refine_launches"],
+                          "build-search": bs["search_refine_launches"],
+                          "train": tr["train_refine_launches"],
+                          "examples": ex["examples_refine_launches"],
+                          "quality": ql["quality_refine_launches"],
+                          "multidevice": md["md_refine_launches"],
+                          "bench: bench_torch.py serve_and_probe": bn["refine_launches"]},
     )]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

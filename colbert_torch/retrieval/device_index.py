@@ -5,8 +5,9 @@ with no host round trip until the results are read:
 
     query BERT encode -> probe matmul + top-nprobe -> IVF cell slices ->
     pid dedup sort and per-pid stage-1 bound -> optional full-centroid
-    refine -> top ncandidates -> stage-2 fused decompress + MaxSim (the CUDA
-    kernel of :mod:`colbert_torch.ops.fused_maxsim`) -> final top-k
+    refine (the CUDA kernel of :mod:`colbert_torch.ops.approx_maxsim`) ->
+    top ncandidates -> stage-2 fused decompress + MaxSim (the CUDA kernel of
+    :mod:`colbert_torch.ops.fused_maxsim`) -> final top-k
 
 On a card the program is a captured CUDA graph per static key
 (:mod:`colbert_torch.retrieval.program`), the counterpart of the JAX
@@ -46,6 +47,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from colbert_torch.ops.approx_maxsim import (REFINE_CHUNK_BYTES, approx_maxsim,  # noqa: F401
+                                              refine_column_bytes)
 from colbert_torch.ops.fused_maxsim import stage2_maxsim
 from colbert_torch.retrieval.program import Program, ProgramCache, tensor_signature
 from colbert_torch.utils.build import resolve_device
@@ -58,9 +61,6 @@ __all__ = ["DeviceIndex", "PendingSearch", "balance_cells", "split_mass_fraction
 
 NEG = -1e30
 MAX_CELL_DUP = 4  # sub-cells per oversized cell (see balance_cells)
-# cap on the refine's working set per chunk of candidate columns (see
-# refine_column_bytes)
-REFINE_CHUNK_BYTES = 256 << 20
 # tail padding (entries) of the device IVF, kept for layout parity with the
 # JAX package; the port's cell reads clamp their indices instead
 IVF_PAD = 4096
@@ -606,61 +606,17 @@ def _stage1(index: DeviceIndex, probe_scores, cells, *, cell_cap: int,
     return stage1, p2, n_unique
 
 
-def refine_column_bytes(B: int, max_doclen: int, Lq: int) -> int:
-    """Device bytes that one candidate column of :func:`_approx_maxsim`
-    holds at its peak, for B queries: two int64 (B, Ld) tiles (the table-row
-    indices and ``embedding_bag``'s own bag index per row) and, per (query,
-    candidate) bag, an fp32 max and an int64 argmax per query token."""
-    return B * (16 * max_doclen + 12 * Lq)
-
-
 def _approx_maxsim(index: DeviceIndex, Q, pids, *, chunk_bytes: int = REFINE_CHUNK_BYTES):
     """Full centroid-interaction approximation for candidates ``pids (B, W)``:
     sum_q max_t <q, cent[code(t)]> over each candidate's tokens, with Q and
     the centroids rounded to bf16 and the products summed in fp32 (the JAX
-    package's bf16 operands with fp32 accumulation).
-
-    Scores come from one centroid-score table per batch: row ``code * B + b``
-    holds query ``b``'s Lq scores of centroid ``code`` (one (K, B*Lq)
-    product), and a last row is the padding index that tokens past their
-    doclen point at. The W candidate columns are walked in chunks shared by
-    the whole batch: one gather of token codes into an int64 (B, c, Ld)
-    tile, turned into table rows in place, then one
-    ``embedding_bag(mode="max")`` over the table, each (query, candidate) a
-    bag of Ld rows (the max over the bag's rows per column, padding left
-    out; a bag of padding only, a zero doclen, gives 0), then the sum over
-    Lq. ``c`` keeps a chunk's working set (:func:`refine_column_bytes` per
-    column) under ``chunk_bytes``, so the loop runs about W/c times; the
-    (K*B + 1, Lq) table is outside that cap. The JAX package gathers bf16
-    centroid rows and multiplies them by Q per chunk instead; at dim 128
-    and Lq 32 that moves twice the bytes per token (256 B of centroid row
-    against 128 B of table row), and it writes the (c, Ld, Lq) scores that
-    the bag's max never materializes."""
-    B, W = pids.shape
-    Lq = Q.shape[1]
-    Ld = index.max_doclen
-    K = index.centroids.shape[0]
-    dev = Q.device
-    q16 = Q.to(torch.bfloat16).float().reshape(B * Lq, -1)
-    c16 = index.centroids.to(torch.bfloat16).float()
-    table = torch.empty((K * B + 1, Lq), dtype=torch.float32, device=dev)
-    torch.mm(c16, q16.T, out=table[:K * B].view(K, B * Lq))
-    table[K * B] = 0.0
-    offs = index.emb_offsets[pids]
-    dls = index.doclens[pids]
-    ar = torch.arange(Ld, device=dev)
-    qrow = torch.arange(B, device=dev)[:, None, None]
-    chunk = max(1, chunk_bytes // refine_column_bytes(B, Ld, Lq))
-    out = torch.empty((B, W), dtype=torch.float32, device=dev)
-    for s in range(0, W, chunk):
-        off, dl = offs[:, s:s + chunk], dls[:, s:s + chunk]            # (B, c)
-        rows = off[..., None] + ar                                     # (B, c, Ld)
-        rows.copy_(index.codes[rows])                                  # token codes
-        rows.mul_(B).add_(qrow).masked_fill_(ar >= dl[..., None], K * B)
-        per_q = torch.nn.functional.embedding_bag(
-            rows.view(-1, Ld), table, mode="max", padding_idx=K * B)     # (B*c, Lq)
-        out[:, s:s + chunk] = per_q.sum(dim=-1).view(B, -1)
-    return out
+    package's bf16 operands with fp32 accumulation). On a card one table
+    product and one launch of the kernel of
+    :mod:`colbert_torch.ops.approx_maxsim`; on the CPU its plain version's
+    chunk passes (which alone read ``chunk_bytes``)."""
+    return approx_maxsim(Q, index.emb_offsets[pids], index.doclens[pids], index.codes,
+                         index.centroids, max_doclen=index.max_doclen,
+                         chunk_bytes=chunk_bytes)
 
 
 def _search(index: DeviceIndex, Q, *, k, nprobe, ncandidates, cell_cap,

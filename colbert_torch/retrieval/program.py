@@ -28,8 +28,8 @@ execution. A capture or a replay that fails raises; nothing runs the eager
 route in its place.
 
 A replay never enters the kernels' Python wrappers, so the launches a
-capture records (``stage2_maxsim`` and ``flash_attention`` counts, by
-kernel) are taken back out of the counts after the capture and added on
+capture records (``stage2_maxsim``, ``flash_attention`` and
+``approx_maxsim`` counts, by kernel) are taken back out of the counts after the capture and added on
 each replay: the counts keep saying how many times each kernel ran.
 
 :class:`ProgramCache` keys programs on the search knobs, the batch shape
@@ -104,10 +104,11 @@ def tensor_signature(tensors: Sequence[torch.Tensor | None]) -> tuple:
 
 
 def _counted_wrappers():
+    from colbert_torch.ops.approx_maxsim import approx_maxsim
     from colbert_torch.ops.flash_attention import flash_attention
     from colbert_torch.ops.fused_maxsim import stage2_maxsim
 
-    return (stage2_maxsim, flash_attention)
+    return (stage2_maxsim, flash_attention, approx_maxsim)
 
 
 def _launch_counts() -> list[dict]:

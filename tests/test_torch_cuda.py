@@ -11,12 +11,16 @@ on the card against the port on the CPU: ``IndexUpdater.add`` (codes equal up
 to near-ties), the exact oracle (within 1e-4) and a ``BatchingSearcher``
 whose loop thread launches and finishes the searches (the same pids and
 scores as direct ``search_batch`` of the same batches); the refine on the
-card against the CPU (1e-4); BERT's materialized attention on bf16/fp16
+card against the CPU (1e-4); the refine kernel against its plain version
+(1e-4) over the CPU tests' grid and at the serving shape, under
+``set_sync_debug_mode("error")``, and one counted refine launch per search
+batch, eager and replayed; BERT's materialized attention on bf16/fp16
 operands with fp32 products against the upcast formulation (one bf16 step,
 gradients within 1e-2 x their max); and the
 ``searching`` and ``evaluate`` entry points at their default device, every
 stage-2 launch through the ``mma`` kernel; a 4-shard sharded index on one
-card (one ``mma`` stage-2 launch per shard, equal to the CPU's up to ties)
+card (one ``mma`` stage-2 launch and one refine launch per shard, equal to
+the CPU's up to ties)
 and a tensor-parallel encode over two model shards (flash per shard, cosine
 0.999 in bf16, 1e-4 in fp32); a 2-layer fp32 training step over a DP and
 a dp x tp mesh of the card repeated against the one-device step (loss
@@ -40,6 +44,7 @@ import numpy as np
 import pytest
 import torch
 
+from colbert_torch.ops import approx_maxsim as am
 from colbert_torch.ops import flash_attention as fa
 from colbert_torch.ops import fused_maxsim as fm
 
@@ -238,9 +243,11 @@ def test_flash_mma_rejects_misaligned_inputs(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("chunk_bytes", [None, 1 << 16])
 def test_refine_on_the_card_matches_the_cpu(cuda_device, tmp_path, chunk_bytes):
-    """The refine's batched chunk passes on the card against the CPU, in one
-    chunk (the default cap) and in many, with sentinel pids; then a search
-    through the refine, every pid both return scored within 1e-4."""
+    """The refine on the card (the table product and the kernel) against
+    the CPU's chunk passes, in one chunk (the default cap) and in many, with
+    sentinel pids; then a search through the refine, every pid both return
+    scored within 1e-4. On the card ``chunk_bytes`` is read by the plain
+    version only, so the two cases differ on the CPU's side alone."""
     from colbert_torch.retrieval import device_index as di
     from colbert_torch.storage import format as fmt
     from colbert_torch.utils.testing import synthesize_index
@@ -275,6 +282,103 @@ def test_refine_on_the_card_matches_the_cpu(cuda_device, tmp_path, chunk_bytes):
             assert abs(a[pid] - b[pid]) <= TOL
         shared += len(a.keys() & b.keys())
     assert shared >= 0.8 * pg.size
+
+
+def _refine_case(seed, device, *, B, W, Lq, Ld, K, n_tokens):
+    """Refine inputs made from a seed: unit queries and centroids, codes
+    over ``n_tokens`` rows plus Ld zero rows of padding (what the device
+    index holds), doclens in [1, Ld] with a tenth 0, sentinel columns
+    (offset ``n_tokens``, doclen 0) and a last candidate that ends on the
+    last real code row -> (Q, offs, dls, codes, centroids) on ``device``."""
+    rng = np.random.default_rng(seed)
+    Q = rng.standard_normal((B, Lq, 128)).astype(np.float32)
+    Q /= np.linalg.norm(Q, axis=-1, keepdims=True)
+    cent = rng.standard_normal((K, 128)).astype(np.float32)
+    cent /= np.linalg.norm(cent, axis=1, keepdims=True)
+    codes = np.zeros(n_tokens + Ld, np.int32)
+    codes[:n_tokens] = rng.integers(0, K, n_tokens)
+    dls = rng.integers(1, Ld + 1, (B, W)).astype(np.int32)
+    dls[rng.random((B, W)) < 0.1] = 0
+    offs = rng.integers(0, n_tokens - Ld, (B, W)).astype(np.int64)
+    offs[:, ::29], dls[:, ::29] = n_tokens, 0          # the sentinel pid
+    offs[-1, -1], dls[-1, -1] = n_tokens - Ld, Ld      # ends on the last code row
+    return tuple(torch.from_numpy(x).to(device) for x in (Q, offs, dls, codes, cent))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("columns", [1, 7, None])
+@pytest.mark.parametrize("Ld", [32, 160])
+@pytest.mark.parametrize("Lq", [1, 17, 32, 40])
+def test_refine_kernel_matches_plain(cuda_device, Lq, Ld, columns):
+    """The refine kernel against its plain version on the card (1e-4) at
+    the CPU tests' grid, one counted launch each; zero doclens and
+    sentinels score 0; with the codes cut right after the last real row
+    (no padding) the kernel returns the same scores: it reads no code past
+    a candidate's doclen."""
+    Q, offs, dls, codes, cent = _refine_case(Lq * 7 + Ld, cuda_device, B=3, W=257, Lq=Lq,
+                                             Ld=Ld, K=500, n_tokens=20_000)
+    cap = {} if columns is None else {
+        "chunk_bytes": columns * am.refine_column_bytes(3, Ld, Lq)}
+    before = am.approx_maxsim.launches
+    got = am.approx_maxsim(Q, offs, dls, codes, cent, max_doclen=Ld, **cap)
+    want = am.approx_maxsim_plain(Q, offs, dls, codes, cent, max_doclen=Ld, **cap)
+    cut = am.approx_maxsim(Q, offs, dls, codes[:20_000], cent, max_doclen=Ld)
+    torch.cuda.synchronize()
+    assert am.approx_maxsim.launches == before + 2
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=TOL, rtol=0)
+    assert torch.equal(cut, got)
+    zero = (dls == 0).cpu().numpy()
+    assert (got.cpu().numpy()[zero] == 0).all() and (got.cpu().numpy()[~zero] != 0).all()
+
+
+@pytest.mark.cuda
+def test_refine_kernel_at_the_serving_shape(cuda_device):
+    """One served batch's refine shape (B=32 queries x W=4,096 candidates,
+    Ld 160, Lq 32, K 32,768 centroids): the kernel against its plain
+    version on the card within 1e-4."""
+    Q, offs, dls, codes, cent = _refine_case(11, cuda_device, B=32, W=4096, Lq=32, Ld=160,
+                                             K=32768, n_tokens=2_000_000)
+    got = am.approx_maxsim(Q, offs, dls, codes, cent, max_doclen=160)
+    want = am.approx_maxsim_plain(Q, offs, dls, codes, cent, max_doclen=160)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=TOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_refine_launch_makes_no_host_synchronization(cuda_device):
+    """The table product and the kernel launch pass under
+    ``torch.cuda.set_sync_debug_mode("error")`` (after a first launch that
+    builds the library), with the same scores."""
+    Q, offs, dls, codes, cent = _refine_case(3, cuda_device, B=4, W=300, Lq=32, Ld=160,
+                                             K=500, n_tokens=20_000)
+    want = am.approx_maxsim(Q, offs, dls, codes, cent, max_doclen=160)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = am.approx_maxsim(Q, offs, dls, codes, cent, max_doclen=160)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_search_counts_one_refine_launch_per_batch(cuda_device, tmp_path):
+    """With the refine on, every ``search_batch`` (the program's eager
+    warm-up, its capture, then replays) and every eager-entry search makes
+    exactly one counted launch of the refine kernel beside one ``mma``
+    stage-2 launch, and the two routes agree up to ties."""
+    s, queries, _ = _served(tmp_path, cuda_device)
+    s.config.plaid_stage2_docs = 128  # below the 640-wide stage-1 budget: the refine runs
+    batch = queries[:32]
+    for route in ("graphed", "graphed", "graphed", "eager"):
+        before = (am.approx_maxsim.launches, dict(am.approx_maxsim.variant_launches),
+                  fm.stage2_maxsim.variant_launches["mma"])
+        got = s.search_batch(batch, k=10) if route == "graphed" else _eager(s, batch)
+        assert am.approx_maxsim.launches == before[0] + 1, route
+        assert am.approx_maxsim.variant_launches == {"table": before[1]["table"] + 1}
+        assert fm.stage2_maxsim.variant_launches["mma"] == before[2] + 1
+        _agree_up_to_ties(*got, *_eager(s, batch))
+    assert s.device_index.programs.stats()["replays"] == 2
 
 
 @pytest.mark.cuda
@@ -446,7 +550,8 @@ def test_search_and_evaluate_examples_run_the_kernel(cuda_device, tmp_path):
 @pytest.mark.cuda
 def test_sharded_index_on_the_card_runs_the_kernel_per_shard(cuda_device, tmp_path):
     """Four data shards on one card (a repeated device list): every shard's
-    stage 2 is one ``mma`` launch, and the merged result equals the same
+    stage 2 is one ``mma`` launch and its refine one launch of the refine
+    kernel, and the merged result equals the same
     sharded search on the CPU up to ties, scores within 1e-4."""
     from colbert_torch.parallel.mesh import make_mesh
     from colbert_torch.parallel.sharded_index import ShardedDeviceIndex
@@ -465,9 +570,11 @@ def test_sharded_index_on_the_card_runs_the_kernel_per_shard(cuda_device, tmp_pa
         torch.randn(8, 32, 128, generator=torch.Generator().manual_seed(1)), dim=-1)
     search = dict(k=10, nprobe=4, ncandidates=256, cell_cap=64, max_candidates=1024)
     before = dict(fm.stage2_maxsim.variant_launches)
+    refine_before = am.approx_maxsim.launches
     pg, sg = gpu.search_Q_batch(Q.to(cuda_device), **search)
     assert fm.stage2_maxsim.variant_launches["mma"] == before["mma"] + 4
     assert fm.stage2_maxsim.variant_launches["simt"] == before["simt"]
+    assert am.approx_maxsim.launches == refine_before + 4  # one refine per shard
     pc, sc = cpu.search_Q_batch(Q, **search)
     np.testing.assert_allclose(sg, sc, atol=TOL, rtol=0)
     for r in range(8):
