@@ -15,6 +15,12 @@ either package's ``Searcher`` opens an index built by the other:
      collection and small, one compress pass over the sample,
   5. IVF from the in-memory codes.
 
+``plan.json``'s ``timings`` hold each phase's seconds: a device phase's
+from two CUDA events read when the build is done (no phase synchronizes
+the device), a host phase's on the host clock. Each phase, and each file
+write, is also a span of :mod:`colbert_torch.utils.tracing` under the
+build's ``index`` span.
+
 ``np.random.default_rng(0)`` draws the sample, the heldout split and the
 initial centroids, as in the JAX package, so both packages draw the same
 ones. Multi-rank striding (``config.nranks``/``rank``: each rank builds
@@ -47,7 +53,8 @@ from colbert_torch.indexing.planner import heldout_split_indices, sample_pids, s
 from colbert_torch.models.encoder import ColBERTEncoder
 from colbert_torch.storage import format as fmt
 from colbert_torch.storage.collection import Collection
-from colbert_torch.utils.tracing import Tracer, device_phase
+from colbert_torch.utils import tracing
+from colbert_torch.utils.tracing import Tracer
 
 logger = logging.getLogger(__name__)
 
@@ -113,22 +120,23 @@ class Indexer:
         index_path = index_path or self.config.index_path
         if not index_path:
             raise ValueError("no index_path given (argument or config.index_path)")
-        if os.path.exists(os.path.join(index_path, "plan.json")) and not overwrite:
-            if not fmt.check_all_files_saved(index_path):
-                logger.info("index at %s already complete; skipping", index_path)
-                return index_path
-        if overwrite:
-            # rank 0 only: another rank clearing the shared directory would
-            # delete rank 0's plan and codec under the waiting ranks
-            if max(1, self.config.nranks) > 1 and self.config.rank != 0:
-                raise ValueError(
-                    "overwrite=True is only valid on rank 0 in a multi-rank "
-                    "build (it clears the shared index dir)"
-                )
-            _clear_index_dir(index_path)
-        os.makedirs(index_path, exist_ok=True)
-        _build(self.config, self.encoder, self.passages, index_path)
-        return index_path
+        with tracing.span("index", request=tracing.NEW):
+            if os.path.exists(os.path.join(index_path, "plan.json")) and not overwrite:
+                if not fmt.check_all_files_saved(index_path):
+                    logger.info("index at %s already complete; skipping", index_path)
+                    return index_path
+            if overwrite:
+                # rank 0 only: another rank clearing the shared directory would
+                # delete rank 0's plan and codec under the waiting ranks
+                if max(1, self.config.nranks) > 1 and self.config.rank != 0:
+                    raise ValueError(
+                        "overwrite=True is only valid on rank 0 in a multi-rank "
+                        "build (it clears the shared index dir)"
+                    )
+                _clear_index_dir(index_path)
+            os.makedirs(index_path, exist_ok=True)
+            _build(self.config, self.encoder, self.passages, index_path)
+            return index_path
 
 
 def index(indexer: Indexer, index_path: str | None = None, **kw) -> str:
@@ -201,41 +209,42 @@ def _build(config: ColBERTConfig, encoder: ColBERTEncoder, passages, index_path:
         return
 
     # --- phase 1: sample + encode (collection_indexer.jl:56-91) ---
-    pids = sample_pids(n, rng)
-    logger.info("sampling %d/%d passages for clustering", len(pids), n)
-    sampled = (passages.take(pids) if isinstance(passages, Collection)
-               else [passages[p] for p in pids])
-    with device_phase(tracer, "sample_encode"):
+    with tracer.phase("sample_encode", dev):
+        pids = sample_pids(n, rng)
+        logger.info("sampling %d/%d passages for clustering", len(pids), n)
+        sampled = (passages.take(pids) if isinstance(passages, Collection)
+                   else [passages[p] for p in pids])
         sample_embs, sample_valid, sample_doclens, sample_layout = (
             encoder.encode_passages_to_device(sampled, return_layout=True))
     avg_doclen_est = float(sample_doclens.mean()) if len(sample_doclens) else 0.0
 
-    # heldout split over the valid rows (collection_indexer.jl:81-91)
-    valid_idx = np.nonzero(sample_valid)[0]
-    train_pos, heldout_pos = heldout_split_indices(len(valid_idx), rng)
-    heldout_idx = valid_idx[heldout_pos]
-    train_idx = valid_idx[train_pos]
-    heldout = sample_embs[torch.from_numpy(heldout_idx).to(dev)]
-    train_weights = np.zeros(len(sample_valid), np.float32)
-    train_weights[train_idx] = 1.0
-    n_train = len(train_idx)
+    with tracing.span("plan"):
+        # heldout split over the valid rows (collection_indexer.jl:81-91)
+        valid_idx = np.nonzero(sample_valid)[0]
+        train_pos, heldout_pos = heldout_split_indices(len(valid_idx), rng)
+        heldout_idx = valid_idx[heldout_pos]
+        train_idx = valid_idx[train_pos]
+        heldout = sample_embs[torch.from_numpy(heldout_idx).to(dev)]
+        train_weights = np.zeros(len(sample_valid), np.float32)
+        train_weights[train_idx] = 1.0
+        n_train = len(train_idx)
 
-    # --- phase 2: plan (collection_indexer.jl:115-139) ---
-    plan = setup_plan(n, avg_doclen_est, n_train, config.chunksize, config.nranks)
-    if config.num_partitions:
-        plan["num_partitions"] = int(config.num_partitions)
-    if plan["num_partitions"] > n_train:
-        plan["num_partitions"] = n_train
-    fmt.save_plan(index_path, plan)
-    config.save(os.path.join(index_path, "config.json"))
+        # --- phase 2: plan (collection_indexer.jl:115-139) ---
+        plan = setup_plan(n, avg_doclen_est, n_train, config.chunksize, config.nranks)
+        if config.num_partitions:
+            plan["num_partitions"] = int(config.num_partitions)
+        if plan["num_partitions"] > n_train:
+            plan["num_partitions"] = n_train
+        fmt.save_plan(index_path, plan)
+        config.save(os.path.join(index_path, "config.json"))
     logger.info("plan: %d chunks x %d, %d partitions, est %.0f embeddings",
                 plan["num_chunks"], plan["chunksize"], plan["num_partitions"],
                 plan["num_embeddings_est"])
 
     # --- phase 3: codec training (collection_indexer.jl:219-237) ---
     t = time.time()
-    init_idx = rng.choice(train_idx, size=plan["num_partitions"], replace=False)
-    with device_phase(tracer, "codec_train"):
+    with tracer.phase("codec_train", dev):
+        init_idx = rng.choice(train_idx, size=plan["num_partitions"], replace=False)
         centroids, cutoffs, weights, avg_residual = train_codec(
             sample_embs, heldout,
             num_partitions=plan["num_partitions"], nbits=config.nbits,
@@ -243,8 +252,9 @@ def _build(config: ColBERTConfig, encoder: ColBERTEncoder, passages, index_path:
             sample_weights=torch.from_numpy(train_weights).to(dev),
             init_idx=init_idx, mesh=encoder.mesh,
         )
-    fmt.save_codec(index_path, centroids.cpu().numpy(), cutoffs.cpu().numpy(),
-                   weights.cpu().numpy(), avg_residual)
+    with tracing.span("write_codec"):
+        fmt.save_codec(index_path, centroids.cpu().numpy(), cutoffs.cpu().numpy(),
+                       weights.cpu().numpy(), avg_residual)
     logger.info("codec trained in %.1fs (avg_residual=%.4f)", time.time() - t, avg_residual)
 
     # small-corpus fast path: sample_pids takes the whole collection when
@@ -254,7 +264,7 @@ def _build(config: ColBERTConfig, encoder: ColBERTEncoder, passages, index_path:
     precomputed = None
     if (config.nranks == 1 and len(pids) == n
             and sample_embs.shape[0] <= FAST_PATH_MAX_ROWS):
-        with device_phase(tracer, "chunk_encode_compress"):
+        with tracer.phase("chunk_encode_compress", dev):
             flat_codes, flat_res = encoder.compress_sample_to_host(
                 sample_embs, sample_layout, sample_doclens, centroids, cutoffs,
                 nbits=config.nbits)
@@ -296,8 +306,9 @@ def _build_chunks(config: ColBERTConfig, encoder: ColBERTEncoder, passages,
             with tracer.phase("chunk_encode_compress"):
                 codes, residuals, doclens = encoder.encode_passages_compressed(
                     passages[lo:hi], centroids, cutoffs, nbits=config.nbits)
-        fmt.save_chunk(index_path, chunk_idx, codes=codes, residuals=residuals,
-                       doclens=doclens, passage_offset=lo)
+        with tracing.span("write_chunk"):
+            fmt.save_chunk(index_path, chunk_idx, codes=codes, residuals=residuals,
+                           doclens=doclens, passage_offset=lo)
         all_codes.append(codes)
         logger.info("chunk %d/%d: %d passages, %d embeddings in %.1fs",
                     chunk_idx + 1, plan["num_chunks"], hi - lo, codes.shape[0],
@@ -322,11 +333,11 @@ def _build_chunks(config: ColBERTConfig, encoder: ColBERTEncoder, passages,
     with tracer.phase("build_ivf"):
         ivf, ivf_lengths = build_ivf(np.concatenate(all_codes), plan["num_partitions"])
         fmt.save_ivf(index_path, ivf, ivf_lengths)
-    plan["timings"] = tracer.as_dict()
-    plan["total_build_seconds"] = round(time.time() - t0, 3)
-    fmt.save_plan(index_path, plan)
-
-    missing = fmt.check_all_files_saved(index_path)
+    with tracing.span("write_plan"):
+        plan["timings"] = tracer.as_dict()
+        plan["total_build_seconds"] = round(time.time() - t0, 3)
+        fmt.save_plan(index_path, plan)
+        missing = fmt.check_all_files_saved(index_path)
     if missing:
         raise RuntimeError(f"index build incomplete; missing {missing}")
     logger.info("index built at %s in %.1fs", index_path, time.time() - t0)

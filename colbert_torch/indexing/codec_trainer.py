@@ -17,6 +17,7 @@ import torch
 
 from colbert_torch.ops import codec as codec_ops
 from colbert_torch.ops import kmeans as kmeans_ops
+from colbert_torch.utils import tracing
 
 __all__ = ["train_codec", "sample_bucket_step"]
 
@@ -51,17 +52,20 @@ def train_codec(
             sample, heldout, mesh, num_partitions=num_partitions, nbits=nbits,
             kmeans_niters=kmeans_niters, seed=seed, sample_weights=sample_weights,
             init_idx=init_idx, tol=tol)
-    sample, sample_weights = _bucket_rows(sample, sample_weights)
-    result = kmeans_ops.kmeans(
-        sample, num_partitions, niters=kmeans_niters, seed=seed,
-        compute_assignments=False, weights=sample_weights, init_idx=init_idx,
-        tol=tol,
-    )
+    with tracing.span("kmeans"):
+        sample, sample_weights = _bucket_rows(sample, sample_weights)
+        result = kmeans_ops.kmeans(
+            sample, num_partitions, niters=kmeans_niters, seed=seed,
+            compute_assignments=False, weights=sample_weights, init_idx=init_idx,
+            tol=tol,
+        )
+    tracing.count("kmeans_iters", result.iterations)
     centroids = result.centroids
-    codes = codec_ops.compress_into_codes(heldout, centroids)
-    residuals = heldout.float() - centroids[codes.long()]
-    cutoffs, weights, avg = codec_ops.bucket_cutoffs_and_weights(nbits, residuals)
-    return centroids, cutoffs, weights, float(avg)
+    with tracing.span("quantiles"):
+        codes = codec_ops.compress_into_codes(heldout, centroids)
+        residuals = heldout.float() - centroids[codes.long()]
+        cutoffs, weights, avg = codec_ops.bucket_cutoffs_and_weights(nbits, residuals)
+        return centroids, cutoffs, weights, float(avg)
 
 
 def _bucket_rows(sample: torch.Tensor, weights: torch.Tensor | None
@@ -109,10 +113,12 @@ def _train_codec_sharded(sample, heldout, mesh, *, num_partitions, nbits, kmeans
     data_sh = launch.put_data_sharded(data, mesh)
     w_sh = launch.put_data_sharded(weights, mesh)
     cents = launch.put_replicated(data[idx].float(), mesh)
+    it = 0
     for it in range(1, kmeans_niters + 1):
         cents, shift = _step(data_sh, w_sh, cents, mesh, k=num_partitions, bsize=1024)
         if (it % SYNC_EVERY == 0 or it == kmeans_niters) and shift < tol:
             break
+    tracing.count("kmeans_iters", it)
     centroids = cents[min(cents)]
     home = centroids.device
     heldout = heldout.to(home, torch.float32)

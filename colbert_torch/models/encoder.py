@@ -43,6 +43,7 @@ from colbert_torch.tokenization.tensorize import (
     tensorize_queries,
 )
 from colbert_torch.tokenization.wordpiece import WordPieceTokenizer
+from colbert_torch.utils import tracing
 from colbert_torch.utils.build import resolve_device
 
 __all__ = ["ColBERTEncoder", "MAX_INFLIGHT"]
@@ -188,13 +189,14 @@ class ColBERTEncoder:
     def _put_batch(self, *arrays: np.ndarray, device: torch.device | None = None
                    ) -> list[torch.Tensor]:
         """Host arrays -> tensors on ``device`` (default: the encoder's),
-        int32 token ids widened to int64."""
+        int32 token ids widened to int64 (the span ``h2d``)."""
         out = []
-        for a in arrays:
-            t = torch.from_numpy(np.ascontiguousarray(a))
-            if t.dtype == torch.int32:
-                t = t.long()
-            out.append(t.to(device or self.device, non_blocking=True))
+        with tracing.span("h2d"):
+            for a in arrays:
+                t = torch.from_numpy(np.ascontiguousarray(a))
+                if t.dtype == torch.int32:
+                    t = t.long()
+                out.append(t.to(device or self.device, non_blocking=True))
         return out
 
     def _forward(self, method: str, ids: np.ndarray, mask: np.ndarray, keep: np.ndarray,
@@ -204,9 +206,12 @@ class ColBERTEncoder:
         (pad rows have empty masks), each data shard runs its rows through
         its own model on its device, and the outputs (a tensor or a tuple)
         gather on the encoder's device in shard order, pad rows included:
-        callers keep the leading ``ids.shape[0]`` rows."""
+        callers keep the leading ``ids.shape[0]`` rows. The model's launches
+        are the span ``forward``."""
         if self.mesh is None:
-            return getattr(self.model, method)(*self._put_batch(ids, mask, keep), *extra, **kw)
+            tensors = self._put_batch(ids, mask, keep)
+            with tracing.span("forward"):
+                return getattr(self.model, method)(*tensors, *extra, **kw)
         ndev = self.mesh.shape["data"]
         if sorted(self._replicas) != list(range(ndev)):
             raise ValueError("a mesh encode needs every data shard in this process")
@@ -253,19 +258,25 @@ class ColBERTEncoder:
         group = max(cfg.passages_batch_size, bsize)
         for glo in range(0, len(passages), group):
             ghi = min(len(passages), glo + group)
-            token_ids = self.tokenize_batch(passages[glo:ghi])
-            order = glo + np.argsort([len(t) for t in token_ids], kind="stable")
+            with tracing.span("doc_tokenize"):
+                token_ids = self.tokenize_batch(passages[glo:ghi])
+                order = glo + np.argsort([len(t) for t in token_ids], kind="stable")
             for start in range(0, ghi - glo, bsize):
-                idx = order[start:start + bsize]
-                ids, mask = tensorize_docs(
-                    (), self.tokenizer,
-                    doc_token_id=self.doc_token_id,
-                    doc_maxlen=cfg.doc_maxlen,
-                    length_bucket=self.length_bucket,
-                    encoded=[token_ids[i - glo] for i in idx],
-                    strict_multiple=self._strict_buckets,
-                )
-                keep = skiplist_keep_mask(ids, mask, self.skiplist)
+                with tracing.span("doc_tensorize"):
+                    idx = order[start:start + bsize]
+                    ids, mask = tensorize_docs(
+                        (), self.tokenizer,
+                        doc_token_id=self.doc_token_id,
+                        doc_maxlen=cfg.doc_maxlen,
+                        length_bucket=self.length_bucket,
+                        encoded=[token_ids[i - glo] for i in idx],
+                        strict_multiple=self._strict_buckets,
+                    )
+                    keep = skiplist_keep_mask(ids, mask, self.skiplist)
+                if tracing.active():
+                    tracing.count("doc_batches")
+                    tracing.count("doc_tokens", int(mask.sum()))
+                    tracing.count("doc_slots", mask.size)
                 yield idx, ids, mask, keep
 
     def _pipeline_batches(self, passages, dispatch):
@@ -278,18 +289,21 @@ class ColBERTEncoder:
         def drain(item):
             idx, keep, copies, nrows = item
             host = []
-            for h, event in copies:
-                if event is not None:
-                    event.synchronize()
-                host.append(_host_numpy(h, nrows))
+            with tracing.span("doc_drain"):
+                for h, event in copies:
+                    if event is not None:
+                        with tracing.span("doc_wait"):
+                            event.synchronize()
+                    host.append(_host_numpy(h, nrows))
             return (idx, keep, *host)
 
         drained, pending = [], []
         with torch.no_grad():
             for idx, ids, mask, keep in self._doc_batches(passages):
-                outs, nrows = dispatch(idx, ids, mask, keep)
-                doclens[idx] = keep.sum(axis=1)
-                pending.append((idx, keep, [_start_host_copy(o) for o in outs], nrows))
+                with tracing.span("doc_dispatch"):
+                    outs, nrows = dispatch(idx, ids, mask, keep)
+                    doclens[idx] = keep.sum(axis=1)
+                    pending.append((idx, keep, [_start_host_copy(o) for o in outs], nrows))
                 if len(pending) > MAX_INFLIGHT:
                     drained.append(drain(pending.pop(0)))
         drained.extend(drain(p) for p in pending)
@@ -313,17 +327,19 @@ class ColBERTEncoder:
                 return (self._forward("encode_batch", ids, mask, keep, **kw),), len(idx)
             take, v = _take_rows(keep)
             ids_d, mask_d, keep_d, take_d = self._put_batch(ids, mask, keep, take)
-            return (self.model.encode_compact_batch(ids_d, mask_d, keep_d, take_d, **kw),), v
+            with tracing.span("forward"):
+                return (self.model.encode_compact_batch(ids_d, mask_d, keep_d, take_d, **kw),), v
 
         drained, doclens = self._pipeline_batches(passages, dispatch)
-        dest_offsets = np.concatenate([[0], np.cumsum(doclens[:-1])])
-        flat = np.empty((int(doclens.sum()), self.dim), np.float32)
-        for idx, keep, emb in drained:
-            if compact:
-                counts = keep.sum(axis=1).astype(np.int64)
-                _scatter_compact_rows(flat, dest_offsets, idx, counts, emb)
-            else:
-                _scatter_compact(flat, dest_offsets, idx, keep, emb)
+        with tracing.span("doc_scatter"):
+            dest_offsets = np.concatenate([[0], np.cumsum(doclens[:-1])])
+            flat = np.empty((int(doclens.sum()), self.dim), np.float32)
+            for idx, keep, emb in drained:
+                if compact:
+                    counts = keep.sum(axis=1).astype(np.int64)
+                    _scatter_compact_rows(flat, dest_offsets, idx, counts, emb)
+                else:
+                    _scatter_compact(flat, dest_offsets, idx, keep, emb)
         return flat, doclens
 
     @torch.no_grad()
@@ -362,15 +378,16 @@ class ColBERTEncoder:
         buf = torch.zeros((padded, self.dim), dtype=torch.bfloat16, device=self.device)
         offset = 0
         for idx, ids, mask, keep in batches:
-            emb = self._forward("encode_batch", ids, mask, keep,
-                                dtype_name=cfg.activation_dtype,
-                                use_flash=self._flash_for(ids.shape[1]))
-            B, L, dim = emb.shape  # B counts a mesh's pad rows (valid=False)
-            buf[offset:offset + B * L] = emb.reshape(B * L, dim)
-            valid[offset:offset + len(idx) * L] = keep.reshape(-1)
-            doclens[idx] = keep.sum(axis=1)
-            layout.append((idx, keep, offset, B, L))
-            offset += B * L
+            with tracing.span("doc_dispatch"):
+                emb = self._forward("encode_batch", ids, mask, keep,
+                                    dtype_name=cfg.activation_dtype,
+                                    use_flash=self._flash_for(ids.shape[1]))
+                B, L, dim = emb.shape  # B counts a mesh's pad rows (valid=False)
+                buf[offset:offset + B * L] = emb.reshape(B * L, dim)
+                valid[offset:offset + len(idx) * L] = keep.reshape(-1)
+                doclens[idx] = keep.sum(axis=1)
+                layout.append((idx, keep, offset, B, L))
+                offset += B * L
         if return_layout:
             return buf, valid, doclens, layout
         return buf, valid, doclens
@@ -424,22 +441,24 @@ class ColBERTEncoder:
                                      bucket_cutoffs, **kw), len(idx)
             take, v = _take_rows(keep)
             ids_d, mask_d, keep_d, take_d = self._put_batch(ids, mask, keep, take)
-            return self.model.encode_compress_compact_batch(
-                ids_d, mask_d, keep_d, centroids, bucket_cutoffs, take_d, **kw), v
+            with tracing.span("forward"):
+                return self.model.encode_compress_compact_batch(
+                    ids_d, mask_d, keep_d, centroids, bucket_cutoffs, take_d, **kw), v
 
         drained, doclens = self._pipeline_batches(passages, dispatch)
-        dest_offsets = np.concatenate([[0], np.cumsum(doclens[:-1])])
-        total = int(doclens.sum())
-        flat_codes = np.empty((total,), np.uint32)
-        flat_res = np.empty((total, nbytes), np.uint8)
-        for idx, keep, codes, res in drained:
-            if compact:
-                counts = keep.sum(axis=1).astype(np.int64)
-                _scatter_compact_rows(flat_codes, dest_offsets, idx, counts, codes)
-                _scatter_compact_rows(flat_res, dest_offsets, idx, counts, res)
-            else:
-                _scatter_compact(flat_codes, dest_offsets, idx, keep, codes)
-                _scatter_compact(flat_res, dest_offsets, idx, keep, res)
+        with tracing.span("doc_scatter"):
+            dest_offsets = np.concatenate([[0], np.cumsum(doclens[:-1])])
+            total = int(doclens.sum())
+            flat_codes = np.empty((total,), np.uint32)
+            flat_res = np.empty((total, nbytes), np.uint8)
+            for idx, keep, codes, res in drained:
+                if compact:
+                    counts = keep.sum(axis=1).astype(np.int64)
+                    _scatter_compact_rows(flat_codes, dest_offsets, idx, counts, codes)
+                    _scatter_compact_rows(flat_res, dest_offsets, idx, counts, res)
+                else:
+                    _scatter_compact(flat_codes, dest_offsets, idx, keep, codes)
+                    _scatter_compact(flat_res, dest_offsets, idx, keep, res)
         return flat_codes, flat_res, doclens
 
     # -- queries -------------------------------------------------------------

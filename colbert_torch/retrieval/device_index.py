@@ -14,9 +14,9 @@ On a card the program is a captured CUDA graph per static key
 package's jitted ``_search_tokens`` / ``_search_batch``: a launch copies
 the inputs in, replays the graph and copies the results out without
 waiting on the device. Three cases run the same funnel eagerly, op by op,
-instead: CPU tensors (the tests), a ``tracer`` (its per-stage times need a
-synchronize at each stage end; the JAX program has no per-stage times
-either) and an encoder with a mesh attached (its shards run on several
+instead: CPU tensors (the tests), a ``tracer`` (the eager stage timing,
+for debugging: its per-stage times need a synchronize at each stage end;
+the JAX program has no per-stage times either) and an encoder with a mesh attached (its shards run on several
 devices). Nothing else runs eagerly, and a capture or replay that fails
 raises.
 
@@ -51,6 +51,7 @@ from colbert_torch.ops.approx_maxsim import (REFINE_CHUNK_BYTES, approx_maxsim, 
                                               refine_column_bytes)
 from colbert_torch.ops.fused_maxsim import stage2_maxsim
 from colbert_torch.retrieval.program import Program, ProgramCache, tensor_signature
+from colbert_torch.utils import tracing
 from colbert_torch.utils.build import resolve_device
 from colbert_torch.utils.tracing import device_phase as _phase
 
@@ -131,6 +132,8 @@ class PendingSearch:
     overflow: torch.Tensor
     k: int
     ready: torch.cuda.Event | None = None
+    # (start, end) CUDA events around a replay recorded while tracing was on
+    timing: tuple | None = None
 
 
 def _stream_chunks(index_path: str, N: int, nbytes: int, pad_rows: int,
@@ -392,30 +395,36 @@ class DeviceIndex:
             self.bucket_weights,
         ]) + (self.n_passages, self.nbits, self.max_doclen, self.probe_dup_max)
 
-    def _launch(self, key, fn, inputs, shapes, dtypes, k: int) -> PendingSearch:
-        """Launch the program of ``key`` (made from ``fn(index, *inputs)``
-        on its first launch) -> the launch's results. A program holds its
-        index weakly: the index owns its programs, and their device memory
-        goes with the index."""
+    def _program(self, key, fn, shapes, dtypes) -> Program:
+        """The program of ``key`` (made from ``fn(index, *inputs)`` on its
+        first launch). A program holds its index weakly: the index owns its
+        programs, and their device memory goes with the index."""
         index = weakref.ref(self)
-        prog = self.programs.get(
+        return self.programs.get(
             (key, self._signature()),
             lambda: Program(lambda *a: fn(index(), *a), shapes, dtypes, self.device))
-        (pids, scores, overflow), ready = prog.launch(*inputs)
-        return PendingSearch(pids=pids, scores=scores, overflow=overflow, k=k, ready=ready)
+
+    @staticmethod
+    def _launch(prog: Program, inputs, k: int) -> PendingSearch:
+        """Launch ``prog`` on ``inputs`` -> the launch's results."""
+        (pids, scores, overflow), ready, timing = prog.launch(*inputs)
+        return PendingSearch(pids=pids, scores=scores, overflow=overflow, k=k, ready=ready,
+                             timing=timing)
 
     def _program_search_Q(self, Q, *, k: int, **kw) -> PendingSearch:
         """Launch the captured program of ``_search_batch``'s key for ``Q``."""
         if isinstance(Q, torch.Tensor) and Q.device.type == "cuda" and Q.device != self.device:
             raise ValueError(f"Q is on {Q.device}, the index on {self.device}")
         B, Lq, dim = Q.shape
-        static = self._static_kwargs(Lq, k, **kw)
+        with tracing.span("program_key"):
+            static = self._static_kwargs(Lq, k, **kw)
 
-        def run(index, q):
-            return _search(index, q, tracer=None, **static)
+            def run(index, q):
+                return _search(index, q, tracer=None, **static)
 
-        return self._launch(("Q", B, Lq, dim, tuple(sorted(static.items()))), run,
-                            [Q], [(B, Lq, dim)], [torch.float32], k)
+            prog = self._program(("Q", B, Lq, dim, tuple(sorted(static.items()))), run,
+                                 [(B, Lq, dim)], [torch.float32])
+        return self._launch(prog, [Q], k)
 
     def _program_search_tokens(self, encoder, input_ids, attention_mask, *, k: int,
                                **kw) -> PendingSearch:
@@ -425,27 +434,35 @@ class DeviceIndex:
         if model_device != self.device:
             raise ValueError(f"the encoder is on {model_device}, the index on {self.device}")
         B, Lq = input_ids.shape
-        static = self._static_kwargs(Lq, k, **kw)
+        with tracing.span("program_key"):
+            static = self._static_kwargs(Lq, k, **kw)
 
-        def run(index, ids, mask):
-            Q = encoder.encode_query_device(ids, mask)
-            return _search(index, Q, tracer=None, **static)
+            def run(index, ids, mask):
+                Q = encoder.encode_query_device(ids, mask)
+                return _search(index, Q, tracer=None, **static)
 
-        key = ("tokens", B, Lq, tuple(sorted(static.items())),
-               encoder.config.activation_dtype, id(encoder.model),
-               tensor_signature(list(encoder.model.parameters())))
-        return self._launch(key, run, (input_ids, attention_mask),
-                            [(B, Lq), (B, Lq)], [torch.int64, torch.bool], k)
+            key = ("tokens", B, Lq, tuple(sorted(static.items())),
+                   encoder.config.activation_dtype, id(encoder.model),
+                   tensor_signature(list(encoder.model.parameters())))
+            prog = self._program(key, run, [(B, Lq), (B, Lq)], [torch.int64, torch.bool])
+        return self._launch(prog, (input_ids, attention_mask), k)
 
     def finalize(self, pending: PendingSearch) -> Tuple[np.ndarray, np.ndarray]:
         """Read a launched search back -> (pids, scores) numpy: the one
-        place a search waits for the device."""
-        if pending.ready is not None:
-            pending.ready.synchronize()
-        return self._postprocess(
-            pending.pids.cpu().numpy(), pending.scores.cpu().numpy(),
-            pending.overflow.cpu().numpy(), pending.k,
-        )
+        place a search waits for the device. A timed replay's device time
+        is counted here, once its events have completed."""
+        with tracing.span("wait"):
+            if pending.ready is not None:
+                pending.ready.synchronize()
+        if pending.timing is not None:
+            start, end = pending.timing
+            tracing.count("program_replay_device_ns", round(start.elapsed_time(end) * 1e6))
+            tracing.count("program_replays_timed")
+        with tracing.span("read_back"):
+            return self._postprocess(
+                pending.pids.cpu().numpy(), pending.scores.cpu().numpy(),
+                pending.overflow.cpu().numpy(), pending.k,
+            )
 
     def _postprocess(self, pids, scores, overflow, k):
         B = pids.shape[0]

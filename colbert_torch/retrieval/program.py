@@ -15,7 +15,13 @@ static key into a ``torch.cuda.CUDAGraph`` and replays it:
   same stream, into fresh pinned host tensors that the launch owns, and an
   event marks them ready: nothing waits on the device until the caller reads
   them, so a later replay never overwrites an earlier batch's results;
-- one lock per program covers copy-in, replay and copy-out.
+- one lock per program covers copy-in, replay and copy-out;
+- while spans record (:mod:`colbert_torch.utils.tracing`), a launch is the
+  span ``program_launch`` > ``copy_in``, ``replay``, ``copy_out`` (or
+  ``capture`` on a key's first launch), and two timing events on the
+  replay stream bracket the replay; the caller reads them once ``ready``
+  has completed (``DeviceIndex.finalize``), so they never block. Nothing
+  is recorded inside a capture, and the route is the same either way.
 
 The first run of a key is the warm-up: it runs the function eagerly on the
 static buffers (the batch's own results) on a capture stream, then captures
@@ -53,6 +59,8 @@ from typing import Callable, Sequence
 
 import numpy as np
 import torch
+
+from colbert_torch.utils import tracing
 
 __all__ = ["Program", "ProgramCache", "MAX_PROGRAMS", "STAGING_SLOTS",
            "capture", "tensor_signature"]
@@ -154,6 +162,7 @@ class Program:
         slot = self._slot
         self._slot = (slot + 1) % STAGING_SLOTS
         if self._staged[slot] is not None and not self._staged[slot].query():
+            tracing.count("program_staging_waits")
             self._staged[slot].synchronize()
         for buf, pinned, a in zip(self.inputs, self._staging[slot], host):
             if isinstance(a, torch.Tensor) and a.device.type == "cuda":
@@ -166,36 +175,54 @@ class Program:
         event.record(stream)
         self._staged[slot] = event
 
-    def launch(self, *host) -> tuple[list[torch.Tensor], torch.cuda.Event | None]:
+    def launch(self, *host) -> tuple[list[torch.Tensor], torch.cuda.Event | None, tuple | None]:
         """Fill the inputs from ``host`` and run the program -> (output
         tensors this launch owns, the event after which they are readable,
-        or None on the CPU)."""
-        if not self.cuda:
-            with self.lock, torch.no_grad():
-                self._copy_in(None, host)
-                return [o.clone() for o in self.fn(*self.inputs)], None
-        capture_stream, replay_stream = _device_streams(self.device)
-        caller = torch.cuda.current_stream(self.device)
-        with self.lock, torch.no_grad():
+        or None on the CPU, and while tracing records the (start, end)
+        timing events around a replay, else None)."""
+        with tracing.span("program_launch"), self.lock, torch.no_grad():
+            if not self.cuda:
+                with tracing.span("copy_in"):
+                    self._copy_in(None, host)
+                with tracing.span("replay"):
+                    outs = self.fn(*self.inputs)
+                with tracing.span("copy_out"):
+                    return [o.clone() for o in outs], None, None
+            capture_stream, replay_stream = _device_streams(self.device)
+            caller = torch.cuda.current_stream(self.device)
+            timing = None
             if self.graph is None:
-                outs = self._warm_up_and_capture(capture_stream, host)
+                with tracing.span("capture"):
+                    outs = self._warm_up_and_capture(capture_stream, host)
+                tracing.count("program_captures")
                 stream = capture_stream
             else:
-                replay_stream.wait_stream(caller)
                 with torch.cuda.stream(replay_stream):
-                    self._copy_in(replay_stream, host)
-                    self.graph.replay()
-                    _add_launches(self._delta)
-                    self.replays += 1
+                    with tracing.span("copy_in"):
+                        replay_stream.wait_stream(caller)
+                        self._copy_in(replay_stream, host)
+                    with tracing.span("replay"):
+                        if tracing.active():
+                            timing = (torch.cuda.Event(enable_timing=True),
+                                      torch.cuda.Event(enable_timing=True))
+                            timing[0].record(replay_stream)
+                        self.graph.replay()
+                        if timing is not None:
+                            timing[1].record(replay_stream)
+                        _add_launches(self._delta)
+                        self.replays += 1
+                tracing.count("program_replays")
                 outs, stream = self.outputs, replay_stream
-            with torch.cuda.stream(stream):
-                host_outs = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True) for o in outs]
-                for h, o in zip(host_outs, outs):
-                    h.copy_(o, non_blocking=True)
-                ready = torch.cuda.Event()
-                ready.record(stream)
-            caller.wait_stream(stream)
-        return host_outs, ready
+            with tracing.span("copy_out"):
+                with torch.cuda.stream(stream):
+                    host_outs = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+                                 for o in outs]
+                    for h, o in zip(host_outs, outs):
+                        h.copy_(o, non_blocking=True)
+                    ready = torch.cuda.Event()
+                    ready.record(stream)
+                caller.wait_stream(stream)
+        return host_outs, ready, timing
 
     def _warm_up_and_capture(self, stream, host) -> list[torch.Tensor]:
         """The key's first launch: the function run eagerly on the static

@@ -37,9 +37,10 @@ from colbert_torch.parallel.sharded_index import ShardedDeviceIndex
 from colbert_torch.retrieval import ranking
 from colbert_torch.retrieval.device_index import DeviceIndex
 from colbert_torch.storage import format as fmt
+from colbert_torch.utils import tracing
 from colbert_torch.utils.tracing import Tracer, device_phase
 
-__all__ = ["Searcher", "search"]
+__all__ = ["SearchHandle", "Searcher", "search"]
 
 logger = logging.getLogger(__name__)
 
@@ -51,8 +52,9 @@ class Searcher:
     config: ColBERTConfig = None  # loaded from the index unless given
     backend: str = "device"
     device: str | torch.device | list = "cuda"
-    # optional stage timing: with a Tracer every stage synchronizes the
-    # device at its end and adds its wall time under its name
+    # eager stage timing, for debugging: with a Tracer the search runs the
+    # eager route and every stage synchronizes the device at its end and
+    # adds its wall time under its name
     tracer: Tracer | None = None
 
     # auto-capacity ceilings (as in the JAX package)
@@ -238,47 +240,54 @@ class Searcher:
             return self._search_batch_impl(queries, k)
         return self.finish_search(self.launch_search(queries, k), k)
 
-    def launch_search(self, queries: Sequence[str], k: int = 10) -> list:
+    def launch_search(self, queries: Sequence[str], k: int = 10) -> "SearchHandle":
         """Tokenize and launch the search of ``queries`` -> a handle for
         :meth:`finish_search`. Batches pad up to a query-batch bucket;
         wider ones split into bucket-sized launches. Device and sharded
         backends."""
         if self.backend == "host":
             raise NotImplementedError("launch_search: device and sharded backends only")
-        kw = self._search_kwargs(k)
-        cap = self.QUERY_BATCH_BUCKETS[-1]
-        parts = []
-        for i in range(0, len(queries), cap):
-            piece = list(queries[i:i + cap])
-            B = len(piece)
-            padded = next(b for b in self.QUERY_BATCH_BUCKETS if b >= B)
-            piece = piece + [""] * (padded - B)
-            with self._phase("tokenize"):
-                ids, mask = self.encoder.tensorize_queries(piece)
-            if self.backend == "sharded":
-                with self._phase("encode"):
-                    Q = self.encoder.encode_query_tokens(ids, mask)
-                parts.append((B, self.sharded_index.search_Q_batch_async(
-                    Q, tracer=self.tracer, **kw)))
-                continue
-            parts.append((B, self.device_index.search_tokens_batch_async(
-                self.encoder, ids, mask, tracer=self.tracer, **kw)))
+        with tracing.span("launch_search", request=tracing.NEW) as sp:
+            with tracing.span("program_key"):
+                kw = self._search_kwargs(k)
+            cap = self.QUERY_BATCH_BUCKETS[-1]
+            parts = SearchHandle(request=sp.request)
+            for i in range(0, len(queries), cap):
+                piece = list(queries[i:i + cap])
+                B = len(piece)
+                padded = next(b for b in self.QUERY_BATCH_BUCKETS if b >= B)
+                piece = piece + [""] * (padded - B)
+                tracing.count("search_batches")
+                tracing.count("search_queries", B)
+                tracing.count("search_pad_rows", padded - B)
+                with self._phase("tokenize"):
+                    ids, mask = self.encoder.tensorize_queries(piece)
+                if self.backend == "sharded":
+                    with self._phase("encode"):
+                        Q = self.encoder.encode_query_tokens(ids, mask)
+                    parts.append((B, self.sharded_index.search_Q_batch_async(
+                        Q, tracer=self.tracer, **kw)))
+                    continue
+                parts.append((B, self.device_index.search_tokens_batch_async(
+                    self.encoder, ids, mask, tracer=self.tracer, **kw)))
         return parts
 
     def finish_search(self, parts: list, k: int = 10) -> Tuple[np.ndarray, np.ndarray]:
         """Read back a :meth:`launch_search` handle -> (pids (B, k), scores)."""
         if not parts:
             return np.empty((0, k), np.int64), np.empty((0, k), np.float32)
-        with self._phase("finish"):
-            outs = [(B, self._index.finalize(p)) for B, p in parts]
-        pids = np.concatenate([pi[:B] for B, (pi, _) in outs])
-        scores = np.concatenate([sc[:B] for B, (_, sc) in outs])
-        if pids.shape[1] < k:  # tiny index: fewer than k hits exist
-            pad = k - pids.shape[1]
-            pids = np.pad(pids, ((0, 0), (0, pad)), constant_values=-1)
-            scores = np.pad(scores.astype(np.float32), ((0, 0), (0, pad)),
-                            constant_values=-np.inf)
-        return pids.astype(np.int64), scores.astype(np.float32)
+        with tracing.span("finish_search", request=getattr(parts, "request", None)):
+            with device_phase(self.tracer, "finish"):
+                outs = [(B, self._index.finalize(p)) for B, p in parts]
+            with tracing.span("read_back"):
+                pids = np.concatenate([pi[:B] for B, (pi, _) in outs])
+                scores = np.concatenate([sc[:B] for B, (_, sc) in outs])
+                if pids.shape[1] < k:  # tiny index: fewer than k hits exist
+                    pad = k - pids.shape[1]
+                    pids = np.pad(pids, ((0, 0), (0, pad)), constant_values=-1)
+                    scores = np.pad(scores.astype(np.float32), ((0, 0), (0, pad)),
+                                    constant_values=-np.inf)
+                return pids.astype(np.int64), scores.astype(np.float32)
 
     def search_stream(self, query_batches, k: int = 10, max_inflight: int = 2):
         """Pipelined batched search: yields one (pids, scores) per input
@@ -299,7 +308,10 @@ class Searcher:
             yield self.finish_search(pending.popleft(), k)
 
     def _phase(self, name: str):
-        return device_phase(self.tracer, name)
+        """A stage of the eager stage timing with a tracer, else a span."""
+        if self.tracer is not None:
+            return device_phase(self.tracer, name)
+        return tracing.span(name)
 
     # --- host backend ---------------------------------------------------
 
@@ -354,6 +366,15 @@ class Searcher:
             nbits=cfg.nbits,
         )[0, :len(pids)].cpu().numpy()
         return pids, scores
+
+
+class SearchHandle(list):
+    """A launched batch: (rows, pending search) per bucket-sized launch, and
+    the request id its spans share (None when nothing recorded)."""
+
+    def __init__(self, *parts, request: int | None = None):
+        super().__init__(*parts)
+        self.request = request
 
 
 def search(searcher: Searcher, query: str, k: int = 10):

@@ -27,7 +27,9 @@ a dp x tp mesh of the card repeated against the one-device step (loss
 1e-5 relative, gradients within 1e-4 x their max + 1e-7); and the captured
 serving program: graphed ``search_batch`` against the eager entry up to
 ties (1e-4, fp32 and bf16 activations), one stage-2 count per launch, a
-launch under ``set_sync_debug_mode("error")``, launches in flight reading
+launch under ``set_sync_debug_mode("error")``, the same with spans and
+counters recording (no capture, each replay timed by its CUDA events),
+launches in flight reading
 back their own results, programs after ``set_balance_cap``, an updater add
 and in-place training steps (eager and graphed), and a failed capture that
 raises; and the captured training step: four fp32 steps graphed against
@@ -737,6 +739,34 @@ def test_serving_launch_makes_no_host_synchronization(cuda_device, tmp_path):
     got = s.finish_search(parts, k=10)
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_recording_keeps_the_captured_route_and_times_replays(cuda_device, tmp_path):
+    """With spans and counters recording, launches replay the captured
+    program (no capture, launched under ``set_sync_debug_mode("error")``),
+    each replay is timed by two CUDA events read at ``finalize``, and the
+    results equal an unrecorded search's."""
+    from colbert_torch.utils import tracing
+
+    s, queries, _ = _served(tmp_path, cuda_device, "bfloat16")
+    want = s.search_batch(queries[:32], k=10)  # captures the B=32 program
+    torch.cuda.synchronize()
+    with tracing.recording() as rec:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            parts = [s.launch_search(queries[:32], k=10) for _ in range(3)]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        got = [s.finish_search(p, k=10) for p in parts]
+    for p, sc in got:
+        np.testing.assert_array_equal(p, want[0])
+        np.testing.assert_array_equal(sc, want[1])
+    c = rec.counters
+    assert "program_captures" not in c and c["program_replays"] == 3
+    assert c["program_replays_timed"] == 3 and c["program_replay_device_ns"] > 0
+    names = [sp.name for sp in rec.spans]
+    assert names.count("replay") == 3 and names.count("capture") == 0
 
 
 @pytest.mark.cuda

@@ -22,7 +22,7 @@ replaced tensor and re-bound encoder parameters give new programs, in-place
 updates do not; two launches in flight keep their own results; the cache
 holds at most ``MAX_PROGRAMS``; the public route runs eagerly on the CPU,
 with a tracer and with a mesh-attached encoder, and launches a program
-otherwise.
+otherwise, whether spans record or not.
 """
 
 import types
@@ -345,3 +345,32 @@ def test_the_route_is_eager_only_for_cpu_tracer_and_mesh(ref, monkeypatch):
     t.search_tokens_batch_async(enc, ids, mask, **SEARCH)
     assert routes == ["_program_search_Q", "_search_Q_eager", "_program_search_tokens",
                       "_search_tokens_eager", "_search_tokens_eager"]
+
+
+def test_recording_keeps_the_program_route(ref, monkeypatch):
+    """With spans and counters recording (an operator's ``recording()``, or
+    ``torch.profiler`` running on the thread), a card (faked as above) still
+    takes the program route: recording never moves serving to the eager
+    route."""
+    from colbert_torch.utils import tracing
+
+    cfg, jenc, _, path, queries, Q = ref
+    _, t = _indexes(path, cfg)
+    enc = port_encoder(jenc)
+    ids, mask = enc.tensorize_queries(queries)
+    routes = []
+    for name in ("_program_search_Q", "_program_search_tokens", "_search_Q_eager",
+                 "_search_tokens_eager"):
+        monkeypatch.setattr(DeviceIndex, name,
+                            lambda self, *a, _n=name, **kw: routes.append(_n))
+    monkeypatch.setattr(DeviceIndex, "device", property(lambda self: torch.device("cuda")))
+    with tracing.recording():
+        assert tracing.active()
+        t.search_Q_batch_async(Q, **SEARCH)
+        t.search_tokens_batch_async(enc, ids, mask, **SEARCH)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        assert tracing.active()
+        t.search_Q_batch_async(Q, **SEARCH)
+        t.search_tokens_batch_async(enc, ids, mask, **SEARCH)
+    tracing.take()
+    assert routes == ["_program_search_Q", "_program_search_tokens"] * 2
