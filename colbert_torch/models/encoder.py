@@ -464,10 +464,17 @@ class ColBERTEncoder:
     # -- queries -------------------------------------------------------------
 
     def tensorize_queries(self, queries: Sequence[str]) -> tuple[np.ndarray, np.ndarray]:
-        """-> (ids (N, query_maxlen) int32, attention mask bool) on the host."""
+        """-> (ids (N, query_maxlen) int32, attention mask bool) on the host,
+        tokenized by the native WordPiece (texts it took counted as
+        ``query_tokenize_native``; those sent to the Python tokenizer, every
+        text where the library is not loaded, as ``query_tokenize_fallback``),
+        byte-identical to the Python path."""
         cfg = self.config
+        ids, lens, n_fallback = self._native_tok.encode_array(queries, cfg.query_maxlen - 3)
+        tracing.count("query_tokenize_native", len(queries) - n_fallback)
+        tracing.count("query_tokenize_fallback", n_fallback)
         return tensorize_queries(
-            queries, self.tokenizer,
+            queries, self.tokenizer, encoded=(ids, lens),
             query_token_id=self.query_token_id,
             query_maxlen=cfg.query_maxlen,
             attend_to_mask_tokens=cfg.attend_to_mask_tokens,

@@ -85,39 +85,75 @@ class NativeWordPiece:
     def available(self) -> bool:
         return self.handle is not None
 
+    def _native(self, texts, width: int):
+        """One pass of the library over ``texts`` (a list[str] or a
+        byte-backed ``Collection``) -> (ids (N, width) int32, lens (N,)
+        int32): text i's tokens are ``ids[i, :lens[i]]``, and ``lens[i] < 0``
+        leaves text i to the Python tokenizer (-1 non-ASCII, -2 more than
+        ``width`` tokens: the native path never silently truncates). None
+        where the library is not loaded, the batch is empty or a text has
+        no UTF-8 form (a lone surrogate)."""
+        from colbert_torch.storage.collection import Collection
+
+        if not self.available or not len(texts):
+            return None
+        if isinstance(texts, Collection):
+            blob, offsets = texts.batch_blob()
+        else:
+            try:
+                blob = "".join(texts).encode("utf-8")
+            except UnicodeEncodeError:
+                return None
+            lens = [len(t) for t in texts]
+            if len(blob) != sum(lens):  # a non-ASCII text: offsets count bytes
+                lens = [len(t.encode("utf-8")) for t in texts]
+            offsets = np.zeros(len(texts) + 1, np.int64)
+            np.cumsum(lens, out=offsets[1:])
+        ids = np.empty((len(texts), width), np.int32)
+        lens = np.empty(len(texts), np.int32)
+        self.lib.wp_encode_batch(
+            self.handle, blob, offsets, len(texts),
+            1 if self.tokenizer.do_lower_case else 0,
+            ids.reshape(-1), lens, width, self.n_threads,
+        )
+        return ids, lens
+
     def encode_batch(self, texts) -> list[list[int]]:
         """Tokenize a list[str] OR a byte-backed ``Collection`` (the latter
         skips the per-text str decode/encode round-trip entirely — bytes go
         from the mmap'd file straight into the C++ tokenizer)."""
         from colbert_torch.storage.collection import Collection
 
-        if not self.available or not len(texts):
+        run = self._native(texts, self.max_tokens)
+        if run is None:
             return self.tokenizer.encode_batch(
                 list(texts) if isinstance(texts, Collection) else texts
             )
-        if not isinstance(texts, Collection):
-            texts = Collection.from_list(texts)
-        blob, offsets = texts.batch_blob()
-        out_ids = np.empty((len(texts), self.max_tokens), np.int32)
-        out_lens = np.empty(len(texts), np.int32)
-        self.lib.wp_encode_batch(
-            self.handle, blob, offsets, len(texts),
-            1 if self.tokenizer.do_lower_case else 0,
-            out_ids.reshape(-1), out_lens, self.max_tokens, self.n_threads,
-        )
-        # out_lens < 0: per-text python fallback (-1 non-ASCII, -2 overflow —
-        # the native path never silently truncates)
-        result: list[list[int]] = []
-        fallback_idx = [i for i in range(len(texts)) if out_lens[i] < 0]
-        fallback = {
-            i: self.tokenizer.encode(texts[i]) for i in fallback_idx
-        }
-        for i in range(len(texts)):
-            if out_lens[i] < 0:
-                result.append(fallback[i])
-            else:
-                result.append(out_ids[i, : out_lens[i]].tolist())
-        return result
+        ids, lens = run
+        return [self.tokenizer.encode(texts[i]) if n < 0 else ids[i, :n].tolist()
+                for i, n in enumerate(lens.tolist())]
+
+    def encode_array(self, texts, width: int) -> tuple[np.ndarray, np.ndarray, int]:
+        """Tokenize ``texts`` into one array -> (ids (N, width) int32, lens
+        (N,) int64, n_fallback): row i starts with text i's first
+        ``min(lens[i], width)`` token ids (the rest of the row is undefined)
+        and ``lens[i]`` is its full token count, as :meth:`encode_batch`
+        gives them. ``n_fallback`` texts went to the Python tokenizer:
+        non-ASCII ones, those over ``max(width, max_tokens)`` tokens, and
+        every text of a batch the library cannot take."""
+        run = self._native(texts, max(width, self.max_tokens))
+        if run is None:
+            ids = np.empty((len(texts), width), np.int32)
+            lens = np.zeros(len(texts), np.int64)
+            fallback = range(len(texts))
+        else:
+            ids, lens = run[0][:, :width], run[1].astype(np.int64)
+            fallback = np.flatnonzero(lens < 0).tolist()
+        for i in fallback:
+            toks = self.tokenizer.encode(texts[i])
+            lens[i] = len(toks)
+            ids[i, :min(len(toks), width)] = toks[:width]
+        return ids, lens, len(fallback)
 
     def __del__(self):
         if getattr(self, "handle", None) and self.lib is not None:

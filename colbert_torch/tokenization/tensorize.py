@@ -99,21 +99,33 @@ def tensorize_queries(
     query_token_id: int,
     query_maxlen: int,
     attend_to_mask_tokens: bool = False,
+    encoded: Tuple[np.ndarray, np.ndarray] | None = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Tokenize queries -> (ids (N, query_maxlen), mask) with [MASK] padding.
 
     Reference: query_tokenization.jl:174-197 — fixed length, ``[Q]`` marker at
-    position 1, every pad replaced by ``[MASK]``.
+    position 1, every pad replaced by ``[MASK]``. ``encoded`` = (token ids
+    (N, W >= query_maxlen - 3), token counts (N,)), as
+    :meth:`NativeWordPiece.encode_array` gives them (row i starts with text
+    i's first tokens), skips the Python tokenizer; either way the rows are
+    filled without a loop over tokens.
     """
-    encoded = tokenizer.encode_batch(texts)
-    content_budget = query_maxlen - 3
-    ids = np.full((len(encoded), query_maxlen), tokenizer.mask_id, dtype=np.int32)
-    mask = np.zeros((len(encoded), query_maxlen), dtype=bool)
-    for i, toks in enumerate(encoded):
-        toks = toks[:content_budget]
-        row = [tokenizer.cls_id, query_token_id] + toks + [tokenizer.sep_id]
-        ids[i, : len(row)] = row
-        mask[i, : len(row)] = True
+    budget = query_maxlen - 3
+    if encoded is None:
+        toks = tokenizer.encode_batch(texts)
+        lens = np.array([len(t) for t in toks], dtype=np.int64)
+        tok_ids = np.zeros((len(toks), budget), dtype=np.int32)
+        for i, t in enumerate(toks):
+            tok_ids[i, : min(len(t), budget)] = t[:budget]
+    else:
+        tok_ids, lens = encoded
+    n = len(lens)
+    kept = np.minimum(lens, budget)
+    ids = np.full((n, query_maxlen), tokenizer.mask_id, dtype=np.int32)
+    ids[:, 0] = tokenizer.cls_id
+    ids[:, 1] = query_token_id
+    np.copyto(ids[:, 2:-1], tok_ids[:, :budget], where=np.arange(budget) < kept[:, None])
+    ids[np.arange(n), kept + 2] = tokenizer.sep_id
     if attend_to_mask_tokens:
-        mask[:] = True
-    return ids, mask
+        return ids, np.ones((n, query_maxlen), dtype=bool)
+    return ids, np.arange(query_maxlen) < (kept + 3)[:, None]

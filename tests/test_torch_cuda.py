@@ -30,7 +30,8 @@ ties (1e-4, fp32 and bf16 activations), one stage-2 count per launch, a
 launch under ``set_sync_debug_mode("error")``, the same with spans and
 counters recording (no capture, each replay timed by its CUDA events),
 launches in flight reading
-back their own results, programs after ``set_balance_cap``, an updater add
+back their own results, the same results for a batch tokenized natively
+and in Python, programs after ``set_balance_cap``, an updater add
 and in-place training steps (eager and graphed), and a failed capture that
 raises; and the captured training step: four fp32 steps graphed against
 the same optimizer's eager steps (loss 1e-5 relative, gradients 1e-4 x
@@ -767,6 +768,33 @@ def test_recording_keeps_the_captured_route_and_times_replays(cuda_device, tmp_p
     assert c["program_replays_timed"] == 3 and c["program_replay_device_ns"] > 0
     names = [sp.name for sp in rec.spans]
     assert names.count("replay") == 3 and names.count("capture") == 0
+
+
+@pytest.mark.cuda
+def test_captured_search_is_the_same_for_either_tokenizer(cuda_device, tmp_path, monkeypatch):
+    """A batch tokenized by the native WordPiece and by the Python one
+    gives byte-identical ids, and ``launch_search``/``finish_search`` on
+    the captured route return the same pids and scores for both, through
+    one program; the native pass counts every text, pad rows included."""
+    from colbert_torch.tokenization import native as native_mod
+    from colbert_torch.utils import tracing
+
+    s, queries, _ = _served(tmp_path, cuda_device, "bfloat16")
+    batch = queries[:30] + ["Naïve café w1"]
+    with tracing.recording() as rec:
+        native = s.finish_search(s.launch_search(batch, k=10), k=10)
+    assert rec.counters["query_tokenize_native"] == 31
+    assert rec.counters["query_tokenize_fallback"] == 1
+    ids = s.encoder.tensorize_queries(batch)
+    monkeypatch.setattr(native_mod, "load_library", lambda: None)
+    monkeypatch.setattr(s.encoder, "_native_tok", native_mod.NativeWordPiece(s.encoder.tokenizer))
+    assert not s.encoder._native_tok.available
+    for a, b in zip(s.encoder.tensorize_queries(batch), ids):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    python = s.finish_search(s.launch_search(batch, k=10), k=10)
+    np.testing.assert_array_equal(python[0], native[0])
+    np.testing.assert_array_equal(python[1], native[1])
+    assert s.device_index.programs.built == 1
 
 
 @pytest.mark.cuda

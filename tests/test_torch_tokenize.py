@@ -97,3 +97,127 @@ def test_synthesize_index_identical_files(tmp_path):
     np.testing.assert_array_equal(fmt.load_all_residuals(b), jfmt.load_all_residuals(a))
     np.testing.assert_array_equal(fmt.read_embedding_rows(b, 5, 77)[0],
                                   jfmt.read_embedding_rows(a, 5, 77)[0])
+
+
+# --- the encoder's native query path against the JAX package --------------
+
+QUERY_CASES = {
+    "bench_pool": None,  # the serving cell's query pool, filled in below
+    "mixed_case_punct": ["The DOG runs, FAST!", "hello...world", "(a) b-c; d:e 'f' \"g\"",
+                         "  spaces   everywhere  ", "W12 w13?w14", "music" * 40],
+    "non_ascii": ["naïve café", "普通 text", "dog cat", "Ünïcödé w1", "w2   w3"],
+    "empty": ["", "dog", "", ""],
+    "long": ["w1 " * 40, "music science history " * 12, "the dog"],
+    "overflow": ["w5 " * 600, "w6 w7", "w8 " * 513],
+    "lone_surrogate": ["dog \ud800 cat", "w1 w2"],  # no UTF-8 form: the batch goes to Python
+}
+
+
+def _bench_pool(n=256):
+    from benchmark.gen.queries import query_pool
+    from benchmark.gen.vocab import filler_words
+
+    return query_pool(2**31 + 11, n, filler_words(30522))
+
+
+def _query_encoder(attend, native=True, monkeypatch=None):
+    from colbert_torch.models.bert import BertConfig
+    from colbert_torch.tokenization import native as native_mod
+
+    if not native:
+        monkeypatch.setattr(native_mod, "load_library", lambda: None)
+    vocab = ttesting.make_vocab(30522 - 52)
+    cfg = ColBERTConfig(dim=16, query_maxlen=32, attend_to_mask_tokens=attend)
+    bert = BertConfig(vocab_size=len(vocab), hidden_size=16, num_hidden_layers=1,
+                      num_attention_heads=2, intermediate_size=32)
+    return ttesting.make_encoder(dim=16, config=cfg, bert_config=bert, vocab=vocab,
+                                 device="cpu")
+
+
+def _reference_tensorize(enc, texts):
+    """The JAX package's ``tensorize_queries`` with the encoder's vocabulary
+    and settings."""
+    return jtz.tensorize_queries(texts, JTok(dict(enc.tokenizer.vocab)),
+                                 query_token_id=enc.query_token_id,
+                                 query_maxlen=enc.config.query_maxlen,
+                                 attend_to_mask_tokens=enc.config.attend_to_mask_tokens)
+
+
+def _python_tensorize(enc, texts):
+    return tz.tensorize_queries(texts, enc.tokenizer, query_token_id=enc.query_token_id,
+                                query_maxlen=enc.config.query_maxlen,
+                                attend_to_mask_tokens=enc.config.attend_to_mask_tokens)
+
+
+def _assert_same_bytes(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert g.tobytes() == w.tobytes()
+
+
+@pytest.mark.parametrize("attend", [False, True])
+@pytest.mark.parametrize("case", sorted(QUERY_CASES))
+def test_encoder_tensorize_queries_matches_reference(case, attend):
+    """``ColBERTEncoder.tensorize_queries`` (native WordPiece) and the
+    port's Python ``tensorize_queries`` give the JAX package's ids and mask
+    byte for byte."""
+    enc = _query_encoder(attend)
+    assert enc._native_tok.available
+    texts = QUERY_CASES[case] or _bench_pool()
+    want = _reference_tensorize(enc, texts)
+    _assert_same_bytes(enc.tensorize_queries(texts), want)
+    _assert_same_bytes(_python_tensorize(enc, texts), want)
+
+
+@pytest.mark.parametrize("attend", [False, True])
+def test_encoder_tensorize_queries_without_the_library(attend, monkeypatch):
+    """Where the native library cannot be loaded every text goes to the
+    Python tokenizer and is counted as a fallback."""
+    from colbert_torch.utils import tracing
+
+    enc = _query_encoder(attend, native=False, monkeypatch=monkeypatch)
+    assert not enc._native_tok.available
+    texts = QUERY_CASES["mixed_case_punct"] + QUERY_CASES["non_ascii"] + [""]
+    with tracing.recording() as rec:
+        got = enc.tensorize_queries(texts)
+    _assert_same_bytes(got, _reference_tensorize(enc, texts))
+    assert rec.counters["query_tokenize_native"] == 0
+    assert rec.counters["query_tokenize_fallback"] == len(texts)
+
+
+@pytest.mark.parametrize("texts,fallback", [
+    (QUERY_CASES["mixed_case_punct"] + QUERY_CASES["empty"], 0),
+    (QUERY_CASES["non_ascii"], 4),
+    (QUERY_CASES["overflow"] + ["dog"], 2),
+    (QUERY_CASES["lone_surrogate"], 2),
+])
+def test_query_tokenize_counters(texts, fallback):
+    """The two counters add up to the texts tokenized: 0 fallbacks on ASCII
+    input, one per non-ASCII text and per text over the library's
+    ``max_tokens_per_text``, every text of a batch with no UTF-8 form."""
+    from colbert_torch.utils import tracing
+
+    enc = _query_encoder(False)
+    with tracing.recording() as rec:
+        enc.tensorize_queries(texts)
+        enc.tensorize_queries(texts)
+    assert rec.counters["query_tokenize_fallback"] == 2 * fallback
+    assert rec.counters["query_tokenize_native"] == 2 * (len(texts) - fallback)
+
+
+@pytest.mark.parametrize("width", [4, 29, 512, 700])
+def test_encode_array_matches_encode_batch(width):
+    """``NativeWordPiece.encode_array`` holds each text's first ``width``
+    tokens and its full count, as ``encode_batch`` gives them, at widths
+    below and above the library's ``max_tokens_per_text``."""
+    tok = WordPieceTokenizer(ttesting.make_vocab(30522 - 52))
+    native = NativeWordPiece(tok)
+    texts = [t for c in sorted(QUERY_CASES) if c != "lone_surrogate"
+             for t in (QUERY_CASES[c] or _bench_pool(64))]
+    want = tok.encode_batch(texts)
+    ids, lens, n_fallback = native.encode_array(texts, width)
+    assert ids.shape == (len(texts), width) and ids.dtype == np.int32
+    assert lens.tolist() == [len(w) for w in want]
+    assert n_fallback == 4 + (2 if width <= native.max_tokens else 0)  # the two overflows
+    for row, toks in zip(ids, want):
+        assert row[:min(len(toks), width)].tolist() == toks[:width]

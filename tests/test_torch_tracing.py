@@ -111,7 +111,8 @@ def test_a_search_batch_gives_its_span_tree(built, searcher, monkeypatch, route)
     assert {s.request for s in rec.spans} == {handle.request} and handle.request > 0
     assert all(0 < s.start_ns <= s.end_ns for s in rec.spans)
     assert {s.thread for s in rec.spans} == {threading.get_ident()}
-    assert rec.counters == {"search_batches": 1, "search_queries": 3, "search_pad_rows": 1}
+    assert rec.counters == {"search_batches": 1, "search_queries": 3, "search_pad_rows": 1,
+                            "query_tokenize_native": 4, "query_tokenize_fallback": 0}
 
 
 def test_each_batch_and_each_build_draws_its_own_request(built, searcher, tmp_path):
