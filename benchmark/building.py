@@ -2,10 +2,11 @@
 the plain reference.
 
 The reference builds its own codec as ColBERT's indexer does: the
-planner's sample of passages, encoded again (fp32, TF32 off), a heldout
-split and initial rows drawn from the seed, k-means and the residuals'
-quantiles (:mod:`benchmark.reference.codec`). It takes nothing from the
-index but what it judges. Compared:
+planner's sample of passages, encoded again by the configuration's
+architecture's reference (fp32, TF32 off), a heldout split and initial
+rows drawn from the seed, k-means and the residuals' quantiles
+(:mod:`benchmark.reference.codec`). It takes nothing from the index but
+what it judges. Compared:
 
 - ``kmeans_gap``: how much larger k-means' objective (the mean squared
   distance of the reference's sample embeddings to their nearest centroid)
@@ -41,10 +42,8 @@ import time
 import numpy as np
 import torch
 
-from benchmark.gen import weights as gen_weights
 from benchmark.gen.vocab import make_vocab
 from benchmark.reference import codec as ref_codec
-from benchmark.reference import encoder as ref_encoder
 from benchmark.reference.tokenize import tensorize_docs
 
 
@@ -85,35 +84,38 @@ def exact_fp32():
 
 
 @torch.no_grad()
-def reference_embeddings(cfg: dict, seed: int, texts: list[str], device,
-                         precision: str = "float32", batch: int = 128) -> list[torch.Tensor]:
-    """Each passage's kept-token embeddings (fp32 unit rows), in token order;
-    encoded in batches of passages of like word counts."""
+def reference_embeddings(r, texts: list[str], precision: str = "float32",
+                         batch: int = 128) -> list[torch.Tensor]:
+    """Each passage's kept-token embeddings (fp32 unit rows) by run ``r``'s
+    architecture, in token order; encoded in batches of passages of like
+    word counts."""
+    cfg, device = r.config, r.device
     with exact_fp32():
-        w = gen_weights.make_weights(seed, cfg["bert"], cfg["dim"], device)
-        vocab = make_vocab(cfg["bert"]["vocab_size"])
+        w = r.arch.make_weights(r.seed, r.widths, cfg["dim"], device)
+        vocab = make_vocab(r.arch.vocab_size(r.widths))
         order = np.argsort([t.count(" ") for t in texts], kind="stable")
         out = [None] * len(texts)
         for s in range(0, len(texts), batch):
             pick = order[s:s + batch]
             ids, mask, keep = tensorize_docs([texts[i] for i in pick], vocab, cfg["doc_maxlen"])
             t = [torch.from_numpy(a).to(device) for a in (ids, mask, keep)]
-            emb = ref_encoder.encode(w, cfg["bert"], *t, precision=precision)
+            emb = r.arch.encode(w, r.widths, *t, precision=precision)
             for i, e, k in zip(pick, emb, t[2]):
                 out[i] = e[k]
         return out
 
 
 @torch.no_grad()
-def reference_codec(cfg: dict, seed: int, passages: list[str], device,
-                    precision: str = "float32", stream: int = 7) -> dict:
-    """The reference's codec for ``passages``: its sample's embeddings at
-    ``precision`` (``"fp8"`` is the control) flattened in passage order
+def reference_codec(r, passages: list[str], precision: str = "float32",
+                    stream: int = 7) -> dict:
+    """Run ``r``'s reference codec for ``passages``: its sample's embeddings
+    at ``precision`` (``"fp8"`` is the control) flattened in passage order
     (``flat``, with each sampled passage's ``offsets``), the centroids, the
     cutoffs and the mean absolute residual. The heldout split and the
     initial rows are drawn from ``[seed, stream]``."""
+    cfg, seed = r.config, r.seed
     pids = ref_codec.sample_pids(len(passages), np.random.default_rng(0))
-    embs = reference_embeddings(cfg, seed, [passages[p] for p in pids], device, precision)
+    embs = reference_embeddings(r, [passages[p] for p in pids], precision)
     offsets = np.concatenate([[0], np.cumsum([len(e) for e in embs])])
     flat = torch.cat(embs)
     del embs
@@ -226,7 +228,7 @@ def _judge(r, path, passages, control):
         return {"kmeans_gap": 1.0, "cutoff_gap": 1.0,
                 "doclen_errors": abs(len(ix["doclens"]) - len(passages)), "ivf_errors": 0,
                 "code_miss_share": 1.0, "bucket_miss_share": 1.0, "failed": len(passages)}, None
-    ref = reference_codec(r.config, r.seed, passages, r.device)
+    ref = reference_codec(r, passages)
     nbits, k = r.config["nbits"], len(ref["centroids"])
     rng = np.random.default_rng([r.seed, 6])
     pos = np.sort(rng.choice(len(ref["pids"]), size=min(r.cell["check_passages"],
@@ -242,7 +244,7 @@ def _judge(r, path, passages, control):
     if not control:
         return found, None
     # its own initial rows, as a program's are its own
-    ctl = reference_codec(r.config, r.seed, passages, r.device, "fp8", stream=8)
+    ctl = reference_codec(r, passages, "fp8", stream=8)
     ctl_ix = compressed_by(dict(ix, centroids=ctl["centroids"].cpu().numpy(),
                                 cutoffs=ctl["cutoffs"].cpu().numpy()),
                            pids, [rows(ctl, i) for i in pos], nbits)

@@ -22,11 +22,13 @@ import time
 import numpy as np
 import torch
 
-from benchmark import building, roofline, serving
+from benchmark import building, serving
 from benchmark.gen.queries import passage_pool
 from benchmark.gen.vocab import filler_words, make_vocab
 from benchmark.reference.codec import sample_pids
 from benchmark.reference.tokenize import tensorize_docs
+
+METRIC = "index_passages_per_s"
 
 
 def run(r) -> dict:
@@ -35,12 +37,11 @@ def run(r) -> dict:
     from colbert_torch.tokenization.wordpiece import WordPieceTokenizer
 
     c, cfg = r.cell, r.config
-    passages = passage_pool(r.seed, cfg["collection_passages"],
-                            filler_words(cfg["bert"]["vocab_size"]), c["min_words"],
-                            c["max_words"])
+    n_vocab = r.arch.vocab_size(r.widths)
+    passages = passage_pool(r.seed, cfg["collection_passages"], filler_words(n_vocab),
+                            c["min_words"], c["max_words"])
     with r.phase("model"):
-        encoder = ColBERTEncoder(serving.build_model(cfg, r.seed, r.device),
-                                 WordPieceTokenizer(make_vocab(cfg["bert"]["vocab_size"])),
+        encoder = ColBERTEncoder(serving.build_model(r), WordPieceTokenizer(make_vocab(n_vocab)),
                                  serving.colbert_config(cfg), device=r.device)
         indexer = Indexer(encoder.config, encoder=encoder, collection=passages, device=r.device)
     path = os.path.join(r.workdir, "index")
@@ -74,16 +75,16 @@ def run(r) -> dict:
     shutil.rmtree(path, ignore_errors=True)
     # the encoder's work per build: the codec's sample, then every passage
     # again unless the sample is the whole collection
-    vocab = make_vocab(cfg["bert"]["vocab_size"])
+    vocab = make_vocab(n_vocab)
     lens = np.concatenate([tensorize_docs(passages[s:s + 1024], vocab, cfg["doc_maxlen"])[1]
                            .sum(axis=1) for s in range(0, len(passages), 1024)])
     pids = sample_pids(len(passages), np.random.default_rng(0))
-    flops = [roofline.encoder_flops(cfg["bert"], cfg["dim"], int(n), int(n)) for n in lens]
+    flops = [r.arch.encoder_flops(r.widths, cfg["dim"], int(n), int(n)) for n in lens]
     r.work["encode_flops_per_build"] = float(
         sum(flops[p] for p in pids) + (sum(flops) if len(pids) < len(passages) else 0.0))
     r.work["build_seconds"] = r.window_s
     r.counters["builds"] = len(builds)
     return {"attempted": len(builds) * len(passages), "failed": 0,
             "readings": found, "correct": correct and bool(builds), "checks": checks,
-            "control": ctl, "metrics": {"index_passages_per_s": (
+            "control": ctl, "metrics": {METRIC: (
                 len(passages) * len(builds) / r.window_s, "passages/s")}}

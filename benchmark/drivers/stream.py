@@ -19,6 +19,8 @@ import numpy as np
 from benchmark import serving
 from benchmark.gen.queries import query_pool
 
+METRIC = "search_qps"
+
 
 def run(r) -> dict:
     c = r.cell
@@ -66,4 +68,4 @@ def run(r) -> dict:
     bad = int(serving.malformed(pids, scores, len(served.index.doclens)).sum())
     return {"attempted": sent[0] * B, "failed": (sent[0] - len(answers)) * B + bad,
             "readings": found, "correct": correct, "checks": checks, "control": ctl,
-            "metrics": {"search_qps": (in_window * B / r.seconds, "queries/s")}}
+            "metrics": {METRIC: (in_window * B / r.seconds, "queries/s")}}

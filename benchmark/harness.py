@@ -75,6 +75,10 @@ class Run:
     device: torch.device
     workdir: str
     card: dict = field(default_factory=dict)
+    # the configuration's architecture module and its widths
+    # (:func:`benchmark.registry.arch_of`)
+    arch: object = None
+    widths: dict = field(default_factory=dict)
     spans: dict = field(default_factory=lambda: defaultdict(list))
     counters: dict = field(default_factory=dict)
     work: dict = field(default_factory=dict)

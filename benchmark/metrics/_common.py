@@ -80,11 +80,12 @@ def refine_work(r):
 
 
 def served_flops(r) -> float:
-    """Model FLOPs of every query served: the query encode at the queries'
-    true lengths, the probe, the refine and stage 2."""
+    """Model FLOPs of every query served: the query encode (every
+    position of a [MASK]-augmented query attends to its true tokens, markers
+    included), the probe, the refine and stage 2."""
     c = r.config
     n = served_queries(r)
-    enc = n * roofline.query_encode_flops(c["bert"], c["dim"], c["query_maxlen"],
-                                          [r.work["true_tokens_per_query"]])
+    enc = n * r.arch.encoder_flops(r.widths, c["dim"], c["query_maxlen"],
+                                   r.work["true_tokens_per_query"])
     probe = roofline.probe_flops(c["query_maxlen"], c["dim"], c["index"]["num_partitions"], n)
     return enc + probe + refine_work(r)[0] + stage2_work(r)[0]

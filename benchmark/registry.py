@@ -2,11 +2,23 @@
 
 - a cell is ``cells/<name>.json``: its configuration, its driver and the
   driver's traffic parameters and limits;
-- a configuration is ``configs/<name>.json``;
-- a driver is ``drivers/<name>.py`` with ``run(r: benchmark.harness.Run)``;
+- a configuration is ``configs/<name>.json``; its optional ``"arch"``
+  (``"bert"`` where absent) names its encoder's architecture, whose widths
+  it holds under the key of that name;
+- a driver is ``drivers/<name>.py`` with ``run(r: benchmark.harness.Run)``
+  and ``METRIC``, the end-to-end metric it reports besides ``setup_s``;
 - a per-layer metric is ``metrics/<name>.py`` with ``LAYER``, ``UNIT``,
   ``MOVES``, ``DRIVERS`` (the drivers whose runs it reads) and
-  ``read(r) -> float | None``.
+  ``read(r) -> float | None``;
+- an encoder architecture is ``archs/<name>.py``, part of the yardstick
+  (it imports nothing of the program), with
+  ``make_weights(seed, widths, dim, device)`` (the seed's fp32 weights
+  under the port's ``state_dict`` names),
+  ``encode(weights, widths, ids, mask, keep, precision)`` (the plain
+  reference at ``"float32"``, TF32 off, and its control at ``"fp8"``),
+  ``encoder_flops(widths, dim, tokens, keys_per_token)``,
+  ``vocab_size(widths)`` and ``PROGRAM_CONFIG``, the ``"module:Class"``
+  of the port's config class that ``ColBERT`` takes for it.
 
 Adding any of them is adding a file: nothing here lists them.
 """
@@ -24,7 +36,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # yardstick's own folders may not import
 FORBIDDEN = ("jax", "jaxlib", "flax", "colbert_tpu")
 PROGRAM = "colbert_torch"
-YARDSTICK_DIRS = ("reference", "gen")
+YARDSTICK_DIRS = ("reference", "gen", "archs")
 
 
 def _json(kind: str, name: str, root: str = HERE) -> dict:
@@ -45,7 +57,7 @@ def config(name: str, root: str = HERE) -> dict:
 
 def names(kind: str, root: str = HERE) -> list[str]:
     """Every part of ``kind`` (``cells``, ``configs``, ``drivers``,
-    ``metrics``) found under ``root``."""
+    ``metrics``, ``archs``) found under ``root``."""
     ext = ".json" if kind in ("cells", "configs") else ".py"
     d = os.path.join(root, kind)
     return sorted(f[:-len(ext)] for f in os.listdir(d)
@@ -71,6 +83,16 @@ def metric(name: str, root: str = HERE):
     return _module("metrics", name, root)
 
 
+def arch(name: str, root: str = HERE):
+    return _module("archs", name, root)
+
+
+def arch_of(cfg: dict, root: str = HERE) -> tuple:
+    """-> (the architecture module of configuration ``cfg``, its widths)."""
+    name = cfg.get("arch", "bert")
+    return arch(name, root), cfg[name]
+
+
 def metrics_for(driver_name: str, root: str = HERE) -> dict:
     """name -> module of every per-layer metric that reads ``driver_name``'s runs."""
     out = {}
@@ -87,8 +109,9 @@ def loaded_forbidden() -> list[str]:
 
 
 def yardstick_imports(root: str = HERE) -> list[str]:
-    """``file: module`` for every import in the reference and the generators
-    of the program or of a forbidden package (by top-level name, whole)."""
+    """``file: module`` for every import in the reference, the generators
+    and the architectures of the program or of a forbidden package (by
+    top-level name, whole)."""
     bad = []
     for sub in YARDSTICK_DIRS:
         d = os.path.join(root, sub)

@@ -43,13 +43,6 @@ def encoder_flops(bert: dict, dim: int, tokens: int, keys_per_token: float) -> f
     return tokens * per_token
 
 
-def query_encode_flops(bert: dict, dim: int, query_maxlen: int, true_lens) -> float:
-    """Queries of ``true_lens`` tokens (markers included), [MASK]-augmented
-    to ``query_maxlen``: every position is encoded, and attends to the
-    query's true tokens."""
-    return sum(encoder_flops(bert, dim, query_maxlen, n) for n in true_lens)
-
-
 def probe_flops(Lq: int, dim: int, K: int, queries: int) -> float:
     return 2.0 * Lq * dim * K * queries
 

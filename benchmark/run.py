@@ -40,8 +40,10 @@ def execute(workload: str, seed: int, seconds: float, trace: bool, device: str |
     device = torch.device(device)
     workdir = os.path.join(tempfile.gettempdir(), "colbert_bench", workload)
     os.makedirs(workdir, exist_ok=True)
+    arch, widths = registry.arch_of(config, root)
     r = harness.Run(workload=workload, cell=cell, config=config, seed=seed, seconds=seconds,
-                    trace=trace, device=device, workdir=workdir, card=harness.card(device))
+                    trace=trace, device=device, workdir=workdir, card=harness.card(device),
+                    arch=arch, widths=widths)
     r.setup_phases["process_start_to_driver"] = harness.process_age_s()
     with r.phase("device_init"):
         torch.zeros(1, device=device)

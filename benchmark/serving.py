@@ -3,14 +3,14 @@ configuration and a seed, and the check of its answers against the plain
 reference.
 
 The system is the port's public API: the synthetic index written under the
-run's work directory, a ``ColBERT`` with the seed's weights (drawn on the
-device), a ``ColBERTEncoder`` over the synthetic vocabulary and a
-``Searcher`` over the index.
+run's work directory, a ``ColBERT`` over the configuration's architecture
+with the seed's weights (drawn on the device), a ``ColBERTEncoder`` over
+the synthetic vocabulary and a ``Searcher`` over the index.
 
 The check (:func:`check`): for a sample of the answered queries drawn from
-the seed, the reference encodes each query again (fp32, TF32 off) and runs
-its own funnel over the same index arrays. Two numbers are compared, each
-the widest over the sample:
+the seed, the architecture's reference encodes each query again (fp32,
+TF32 off) and runs its own funnel over the same index arrays. Two numbers
+are compared, each the widest over the sample:
 
 - ``score_gap``: how far a returned score lies from the reference's exact
   score of the returned passage;
@@ -27,6 +27,7 @@ An answer with a missing or unknown pid or a non-finite score is failed.
 from __future__ import annotations
 
 import gc
+import importlib
 import os
 import shutil
 from dataclasses import dataclass
@@ -35,9 +36,7 @@ import numpy as np
 import torch
 
 from benchmark.gen import index as gen_index
-from benchmark.gen import weights as gen_weights
 from benchmark.gen.vocab import filler_words, make_vocab
-from benchmark.reference import encoder as ref_encoder
 from benchmark.reference import funnel as ref_funnel
 from benchmark.reference.tokenize import tensorize_queries
 
@@ -57,15 +56,18 @@ def colbert_config(cfg: dict):
                          **cfg["search"], **cfg.get("indexing", {}))
 
 
-def build_model(cfg: dict, seed: int, device):
-    """The port's ColBERT holding the seed's weights (no host copy, no
-    per-leaf init)."""
-    from colbert_torch.models.bert import BertConfig
+def build_model(r):
+    """The port's ColBERT of run ``r``'s architecture (its config class
+    named by ``PROGRAM_CONFIG``), holding the seed's weights (no host copy,
+    no per-leaf init)."""
     from colbert_torch.models.colbert import ColBERT
 
+    module, name = r.arch.PROGRAM_CONFIG.split(":")
+    program_config = getattr(importlib.import_module(module), name)
+    dim = r.config["dim"]
     with torch.device("meta"):
-        model = ColBERT(BertConfig(**cfg["bert"]), cfg["dim"])
-    model.load_state_dict(gen_weights.make_weights(seed, cfg["bert"], cfg["dim"], device),
+        model = ColBERT(program_config(**r.widths), dim)
+    model.load_state_dict(r.arch.make_weights(r.seed, r.widths, dim, r.device),
                           assign=True, strict=True)
     return model
 
@@ -89,12 +91,13 @@ def serve(r) -> Served:
         shutil.rmtree(path, ignore_errors=True)
         gen_index.write_index(path, ix, {"dim": cfg["dim"], "nbits": cfg["nbits"]})
     with r.phase("model"):
-        vocab = make_vocab(cfg["bert"]["vocab_size"])
-        encoder = ColBERTEncoder(build_model(cfg, r.seed, r.device), WordPieceTokenizer(vocab),
+        vocab = make_vocab(r.arch.vocab_size(r.widths))
+        encoder = ColBERTEncoder(build_model(r), WordPieceTokenizer(vocab),
                                  colbert_config(cfg), device=r.device)
     with r.phase("searcher"):
         searcher = Searcher(path, encoder=encoder, config=encoder.config, device=r.device)
-    return Served(searcher=searcher, index=ix, n_words=filler_words(cfg["bert"]["vocab_size"]))
+    return Served(searcher=searcher, index=ix,
+                  n_words=filler_words(r.arch.vocab_size(r.widths)))
 
 
 def release(r, served: Served | None = None) -> None:
@@ -116,22 +119,23 @@ def sample(seed: int, n_answered: int, n: int) -> np.ndarray:
 
 
 @torch.no_grad()
-def reference_answers(cfg: dict, seed: int, ix, queries: list[str], k: int, device,
-                      precision: str = "float32", batch: int = 64) -> tuple[list, object]:
-    """-> (the reference's answer to each query, encoded at ``precision``
-    (``"fp8"`` is the control) and then through its funnel; the reference's
-    index)."""
+def reference_answers(r, ix, queries: list[str], k: int, precision: str = "float32",
+                      batch: int = 64) -> tuple[list, object]:
+    """-> (the reference's answer to each query, encoded by run ``r``'s
+    architecture at ``precision`` (``"fp8"`` is the control) and then
+    through its funnel; the reference's index)."""
+    cfg, device = r.config, r.device
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
-        weights = gen_weights.make_weights(seed, cfg["bert"], cfg["dim"], device)
-        vocab = make_vocab(cfg["bert"]["vocab_size"])
+        weights = r.arch.make_weights(r.seed, r.widths, cfg["dim"], device)
+        vocab = make_vocab(r.arch.vocab_size(r.widths))
         Qs = []
         for s in range(0, len(queries), batch):
             ids, mask = tensorize_queries(queries[s:s + batch], vocab, cfg["query_maxlen"])
             ids, mask = torch.from_numpy(ids).to(device), torch.from_numpy(mask).to(device)
-            Qs.append(ref_encoder.encode(weights, cfg["bert"], ids, mask,
-                                         torch.ones_like(mask), precision))
+            Qs.append(r.arch.encode(weights, r.widths, ids, mask, torch.ones_like(mask),
+                                    precision))
         del weights
         Q = torch.cat(Qs)
         rix = ref_funnel.load_index(ix, device)
@@ -178,9 +182,9 @@ def check(r, ix, queries: list[str], pids: np.ndarray, scores: np.ndarray, k: in
     reference funnel counted per query (for the roofline readers)."""
     pick = sample(r.seed, len(queries), r.cell["check_queries"])
     chosen = [queries[i] for i in pick]
-    ref, rix = reference_answers(r.config, r.seed, ix, chosen, k, r.device)
+    ref, rix = reference_answers(r, ix, chosen, k)
     out = readings(rix, ref, pids[pick], scores[pick])
-    _, mask = tensorize_queries(chosen, make_vocab(r.config["bert"]["vocab_size"]),
+    _, mask = tensorize_queries(chosen, make_vocab(r.arch.vocab_size(r.widths)),
                                 r.config["query_maxlen"])
     r.work["true_tokens_per_query"] = float(mask.sum(axis=1).mean())
     for key in ("candidates", "refine_passages", "refine_tokens", "stage2_passages",
@@ -194,8 +198,8 @@ def control(r, ix, queries: list[str], k: int) -> dict:
     in the program's place with its encoder in fp8."""
     pick = sample(r.seed, len(queries), r.cell["check_queries"])
     chosen = [queries[i] for i in pick]
-    ref, rix = reference_answers(r.config, r.seed, ix, chosen, k, r.device)
-    ctl, _ = reference_answers(r.config, r.seed, ix, chosen, k, r.device, precision="fp8")
+    ref, rix = reference_answers(r, ix, chosen, k)
+    ctl, _ = reference_answers(r, ix, chosen, k, precision="fp8")
     pids = np.stack([a["pids"].cpu().numpy() for a in ctl])
     scores = np.stack([a["scores"].cpu().numpy() for a in ctl])
     return readings(rix, ref, pids, scores)

@@ -1,6 +1,6 @@
 """BENCHMARK.json and the per-file layout: names, units, layers, what
-each cell reports, and that a new cell and a new metric are found as new
-files alone."""
+each cell reports, each configuration's architecture, and that a new cell
+and a new metric are found as new files alone."""
 
 import json
 import os
@@ -14,7 +14,6 @@ from benchmark import registry
 ROOT = os.path.dirname(registry.HERE)
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
-END_TO_END = {"stream": "search_qps", "build": "index_passages_per_s"}
 
 
 @pytest.fixture(scope="module")
@@ -72,8 +71,30 @@ def test_per_layer_metrics_match_their_readers(bench):
         for w in m["workloads"]:
             # the cell reads this metric and reports the metric it moves
             assert cells[w]["driver"] in reader.DRIVERS
-            assert END_TO_END[cells[w]["driver"]] == m["moves"]
+            assert registry.driver(cells[w]["driver"]).METRIC == m["moves"]
             assert w in e2e[m["moves"]].get("workloads", [w])
+
+
+def test_every_configuration_names_an_architecture_file(bench):
+    for c in bench["configs"]:
+        cfg = registry.config(c["name"])
+        name = cfg.get("arch", "bert")
+        assert name in registry.names("archs")
+        assert os.path.isfile(os.path.join(registry.HERE, "archs", f"{name}.py"))
+        arch, widths = registry.arch_of(cfg)
+        assert widths is cfg[name] and arch.vocab_size(widths) > 0
+        module, cls = arch.PROGRAM_CONFIG.split(":")
+        assert module.split(".")[0] == registry.PROGRAM and cls.isidentifier()
+
+
+def test_every_cell_driver_names_its_end_to_end_metric(bench):
+    e2e = {m["name"]: m for m in bench["end_to_end"]}
+    for w in bench["workloads"]:
+        name = registry.cell(w["name"])["driver"]
+        metric = registry.driver(name).METRIC
+        assert metric in e2e and w["name"] in e2e[metric].get("workloads", [w["name"]])
+        for m in registry.metrics_for(name).values():
+            assert m.MOVES == metric
 
 
 def test_every_cell_reports_a_layer_metric(bench):

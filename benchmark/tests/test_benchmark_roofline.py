@@ -12,7 +12,6 @@ def test_encoder_flops_by_hand():
     bert = {"hidden_size": 4, "intermediate_size": 8, "num_hidden_layers": 2}
     # per layer 2*(4*16 + 2*4*8) + 4*3*4 = 2*128 + 48 = 304; head 2*4*2 = 16
     assert roofline.encoder_flops(bert, 2, 5, 3) == 5 * (2 * 304 + 16)
-    assert roofline.query_encode_flops(bert, 2, 5, [3, 3]) == 2 * 5 * (2 * 304 + 16)
 
 
 def test_stage2_by_hand():
