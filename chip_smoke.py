@@ -8,8 +8,8 @@
    started together, sm_90a) and prints the build time and ptxas's
    registers and spills per kernel instantiation; the paths'
    instantiations must not spill: the tensor-core flash kernel's bf16
-   hd=64, the tensor-core stage-2 kernel's nbits 2 and the refine's
-   ``approx_maxsim_kernel<8>``.
+   hd=64, unwindowed and windowed, the tensor-core stage-2 kernel's nbits
+   2 and the refine's ``approx_maxsim_kernel<8>``.
 2. Holds the stage-2 kernels against their plain PyTorch version on the
    card at the serving path's stage-2 shapes (B=32, Lq=32, NC=1024,
    Ld=160, dim=128, nbits=2, K=32768) and at edge cases (nbits 1/4/8, byte
@@ -93,6 +93,18 @@
    the gradients at S=160 within 1e-2 x their max; in situ, bert-base bf16
    embeddings of a ~110-word batch and of the S=512 corpus batch, new
    against upcast, to a minimum cosine of 0.999.
+   ``[flash-window]``: ``flash_mma_window_kernel`` (ModernBERT's local
+   layers, window 64) at the ``index-build.modern-long`` cell's doc batch
+   (B=64, H=12, hd=64, bf16) at its shortest, mean and longest padded
+   lengths S 4,224, 6,144 and 8,192, with ragged pads: one counted
+   windowed ``mma`` launch (counters zeroed just before), the tile pairs
+   counted, the longest and the shortest row against the plain version
+   with the window on their fp32 upcast (8e-3 * max(1, |plain|), the bf16
+   tolerance above), which the unwindowed kernel on the same inputs must
+   fail; then the windowed kernel, the unwindowed one and the plain
+   version (one batch row) timed in turns beside the windowed bound (4 hd
+   FLOPs per pair inside the window of every padded row at the bf16
+   peak vs q, k, v, o and the bias read or written once).
 5. ``[build]``: ``Indexer.index`` builds a 20,000-passage long-document
    index (~450 words, padded to S=512) at bert-base width with bf16
    activations, the flash-routed configuration of ``bench.py``'s flash
@@ -101,6 +113,15 @@
    artifacts and that the flash kernel ran 12 times (once per layer) for
    every encoded batch, every launch through the ``mma`` kernel. Profiles one fused encode+compress batch and one
    Lloyd pass at the build's partition count.
+   ``[build-modernbert]``: GTE-ModernColBERT at its published widths (22
+   layers, 768 hidden, 12 heads, GeGLU 1,152, 50,368 vocabulary; random
+   weights) indexes 128 passages of 4,096-8,187 words through
+   ``Indexer.index`` (doc_maxlen 8,192, 128-wide buckets, flash from
+   S=1,024, index_bsize 64): every encoded batch takes 8 global
+   (``flash_mma_kernel``) and 14 windowed (``flash_mma_window_kernel``)
+   launches, all ``mma``, none materialized; prints the build's seconds
+   and the top-1 self-retrieval of 8 passages through ``Searcher``
+   (random weights: information only).
 6. ``[build-search]``: ``Searcher`` answers two 32-query batches over the
    built index (each query the first 40 words of a passage) through the
    ``mma`` stage-2 kernel (checked); prints the top-1 self-retrieval rate
@@ -265,6 +286,11 @@ ATTN_STEP_LOSS_REL = 1e-3
 ATTN_STEP_GRAD_REL = 0.1
 ATTN_STEP_KBIAS = 1e-5
 SWEEP_ROWS = 65_536         # B*S of each [flash] sweep shape
+WINDOW = 64                 # [flash-window]: ModernBERT's local half-width
+WINDOW_B = 64               # the index-build.modern-long cell's doc batch
+WINDOW_SHAPES = (4224, 6144, 8192)  # its shortest, mean and longest padded lengths
+MB_PASSAGES = 128           # [build-modernbert]: two doc batches of 64
+MB_WORDS = (4096, 8188)     # words per passage (the cell's range)
 BATCHER_QUERIES = 256       # [serve-batcher]: single queries from 16 threads
 BATCHER_THREADS = 16
 HTTP_REQUESTS = 128         # [serve-http]: concurrent POST /search
@@ -1104,6 +1130,152 @@ def flash_sweep(device, path_mask) -> None:
         print(f"[flash] sweep S={S} B={B} H=12 hd=64 bf16: kernel_ms={k1:.4f},{k2:.4f} "
               f"sdpa_ms={s1:.4f} materialized_ms={m1:.4f} bound_ms={bound:.4f} ({by})")
         del q, k, v, bias, qs, ks, vs, qb, kb, vb
+
+
+def window_bound_ms(B, H, S, hd, window, itemsize) -> tuple[float, str]:
+    """Least time of a windowed launch at these shapes: 4*hd operations per
+    (query, key) pair inside the window of every padded row at the bf16
+    tensor-core peak vs q, k, v, o (and the bias) read or written once."""
+    m = min(window, S - 1)
+    pairs = S + 2 * m * S - m * (m + 1)
+    t_ops = 4 * B * H * pairs * hd / PEAK_BF16_FLOPS * 1e3
+    t_bytes = (4 * B * H * S * hd * itemsize + B * S * 4) / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def flash_window_phase(device) -> dict:
+    """[flash-window]: the windowed kernel at the modern-long cell's padded
+    shapes against the plain version, then timed -> per S the times,
+    bound and error."""
+    import torch
+
+    from colbert_torch.ops import flash_attention as fa
+    from colbert_torch.utils import tracing
+
+    rng = np.random.default_rng(21)
+    B, H, hd = WINDOW_B, 12, 64
+    out = {}
+    for S in WINDOW_SHAPES:
+        # ragged as the cell's buckets make them: the longest row ends in
+        # the last 128-token tile, the others anywhere from 4,099 tokens
+        lens = rng.integers(min(4099, S - 127), S + 1, B)
+        lens[0] = S - int(rng.integers(0, 128))
+        mask = np.arange(S)[None] < lens[:, None]
+        q, k, v, bias = flash_inputs(rng, device, B, H, S, hd, torch.bfloat16, mask)
+        fa.flash_attention.launches = fa.flash_attention.window_launches = 0
+        fa.flash_attention.variant_launches.update(mma=0, simt=0)
+        with tracing.recording() as t:
+            got = fa.flash_attention(q, k, v, bias, num_heads=H, window=WINDOW)
+        torch.cuda.synchronize()
+        counts = (fa.flash_attention.launches, fa.flash_attention.window_launches,
+                  fa.flash_attention.variant_launches["mma"])
+        check(counts == (1, 1, 1), f"[flash-window] S={S}: launches, windowed, mma {counts}")
+        check(t.counters == {"attn_window_tile_pairs": B * H * fa.window_tile_pairs(S, WINDOW)},
+              f"[flash-window] S={S}: counters {t.counters}")
+        full = fa.flash_attention(q, k, v, bias, num_heads=H)
+        worst, ok, full_ok = 0.0, True, True
+        for b in (int(lens.argmax()), int(lens.argmin())):
+            rows = slice(b * H, (b + 1) * H)
+            want = fa.flash_attention_plain(q[rows].float(), k[rows].float(), v[rows].float(),
+                                            bias[b:b + 1], num_heads=H, window=WINDOW)
+            real = torch.from_numpy(mask[b]).to(device)[None, :, None].expand_as(want)
+            tol = 8e-3 * want.abs().clamp(min=1.0)
+            err = (got[rows].float() - want).abs()
+            ok &= bool(((err <= tol) | ~real).all())
+            full_ok &= bool((((full[rows].float() - want).abs() <= tol) | ~real).all())
+            worst = max(worst, float(err[real].max()))
+            del want, real, tol, err
+        check(np.isfinite(worst) and ok, f"[flash-window] S={S}: max_abs_err {worst}")
+        check(not full_ok, f"[flash-window] S={S}: the unwindowed kernel is within the "
+                           "tolerance, which then cannot tell the window")
+        del got, full
+        kern = lambda: fa.flash_attention(q, k, v, bias, num_heads=H, window=WINDOW)  # noqa: E731
+        unwin = lambda: fa.flash_attention(q, k, v, bias, num_heads=H)  # noqa: E731
+        plain = lambda: fa.flash_attention_plain(  # noqa: E731
+            q[:H], k[:H], v[:H], bias[:1], num_heads=H, window=WINDOW)
+        k1 = time_ms(kern, 10)
+        u1 = time_ms(unwin, 3)
+        p1 = time_ms(plain, 3)
+        k2 = time_ms(kern, 10)
+        bound, by = window_bound_ms(B, H, S, hd, WINDOW, 2)
+        print(f"[flash-window] B={B} H={H} S={S} hd={hd} w={WINDOW} bf16: "
+              f"kernel_ms={k1:.4f},{k2:.4f} unwindowed_ms={u1:.4f} plain_ms_one_row={p1:.4f} "
+              f"bound_ms={bound:.4f} ({by}) max_abs_err={worst:.3e} within tolerance: {ok}; "
+              f"unwindowed within it: {full_ok}")
+        out[S] = dict(kernel_ms=(k1 + k2) / 2, unwindowed_ms=u1, plain_ms_one_row=p1,
+                      bound_ms=bound, bound_by=by, max_abs_err=worst)
+        del q, k, v, bias
+        torch.cuda.empty_cache()
+    return out
+
+
+def modernbert_build(device, work_dir: str) -> dict:
+    """[build-modernbert]: a GTE-ModernColBERT index through the kernels ->
+    launches, seconds and the self-retrieval count."""
+    import torch
+
+    from colbert_torch.config import ColBERTConfig
+    from colbert_torch.indexing.builder import Indexer
+    from colbert_torch.models.colbert import init_colbert
+    from colbert_torch.models.encoder import ColBERTEncoder
+    from colbert_torch.models.modernbert import ModernBertConfig
+    from colbert_torch.ops import flash_attention as fa
+    from colbert_torch.retrieval.searcher import Searcher
+    from colbert_torch.tokenization.wordpiece import WordPieceTokenizer
+    from colbert_torch.utils import tracing
+    from colbert_torch.utils.testing import make_vocab
+
+    cfg = ModernBertConfig()
+    model = init_colbert(cfg, 128, generator=torch.Generator().manual_seed(21))
+    ccfg = ColBERTConfig(dim=128, doc_maxlen=8192, query_maxlen=32, index_bsize=64,
+                         length_bucket=128, use_pallas=True, flash_min_seqlen=1024,
+                         nbits=2, kmeans_niters=4)
+    enc = ColBERTEncoder(model, WordPieceTokenizer(make_vocab(cfg.vocab_size - 52)), ccfg,
+                         device=device)
+    rng = np.random.default_rng(21)
+    passages = [" ".join(f"w{j}" for j in rng.integers(0, cfg.vocab_size - 52, n))
+                for n in rng.integers(*MB_WORDS, MB_PASSAGES)]
+    path = os.path.join(work_dir, "smoke_modernbert_index")
+    reset_counts()
+    fa.flash_attention.window_launches = 0
+    try:
+        t0 = time.perf_counter()
+        with tracing.recording() as t:
+            Indexer(ccfg, encoder=enc, collection=passages, device=device).index(
+                path, overwrite=True)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        c = t.counters
+        batches = c.get("doc_batches", 0)
+        launches = (c.get("attn_global_launches", 0), c.get("attn_window_launches", 0),
+                    c.get("attn_materialized_launches", 0))
+        print(f"[build-modernbert] {MB_PASSAGES} passages in {seconds:.2f}s "
+              f"({MB_PASSAGES / seconds:.1f} passages/s, first build); {batches} doc batches; "
+              f"global, windowed, materialized launches {launches}; flash launches by kernel "
+              f"{fa.flash_attention.variant_launches}, windowed {fa.flash_attention.window_launches}")
+        check(batches > 0 and launches == (8 * batches, 14 * batches, 0),
+              f"[build-modernbert] launches {launches} over {batches} batches, expected 8 "
+              "global, 14 windowed and 0 materialized a batch")
+        check(fa.flash_attention.variant_launches == {"mma": 22 * batches, "simt": 0}
+              and fa.flash_attention.window_launches == 14 * batches,
+              f"[build-modernbert] kernel launches {fa.flash_attention.variant_launches}, "
+              f"windowed {fa.flash_attention.window_launches}")
+        searcher = Searcher(path, encoder=enc, config=ccfg, device=device)
+        pids, scores = searcher.search_batch([" ".join(p.split()[:25]) for p in passages[:8]],
+                                             k=5)
+        check(pids.shape == (8, 5) and bool(np.isfinite(scores).all()),
+              f"[build-modernbert] search gave {pids.shape}")
+        top1 = int((pids[:, 0] == np.arange(8)).sum())
+        print(f"[build-modernbert] self-retrieval top-1 {top1}/8 (random weights: "
+              f"information only) on {card_line()}")
+        del searcher
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    flash = fa.flash_attention.launches
+    del enc, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(seconds=seconds, batches=batches, flash_launches=flash, self_top1=top1)
 
 
 def upcast_stand_in(q, k, v, mask_bias, num_heads: int, use_flash: bool = False):
@@ -3270,8 +3442,8 @@ def kernel_label(mangled: str) -> str:
     the name as it is."""
     import re
 
-    m = re.search(r"\d+(flash_mma_kernel|flash_kernel|stage2_mma_kernel|stage2_kernel|"
-                  r"approx_maxsim_kernel)I(.+?)EEv", mangled)
+    m = re.search(r"\d+(flash_mma_kernel|flash_mma_window_kernel|flash_kernel|"
+                  r"stage2_mma_kernel|stage2_kernel|approx_maxsim_kernel)I(.+?)EEv", mangled)
     if m is None:
         return mangled
     args = re.sub(r"Li(\d+)E", r",\1", m.group(2)).lstrip(",")
@@ -3301,6 +3473,37 @@ def card_line() -> str:
     return done.stdout.strip().splitlines()[0] if done.returncode == 0 else "unknown"
 
 
+def build_kernels() -> dict:
+    """Phase 1: one nvcc per kernel source, started together, always from
+    the sources (a library left by an earlier run would hide ptxas's
+    report) -> the logs; the paths' instantiations must not spill."""
+    from colbert_torch.ops import approx_maxsim as am
+    from colbert_torch.ops import flash_attention as fa
+    from colbert_torch.ops import fused_maxsim as fm
+    from colbert_torch.utils.build import BUILD_DIR
+
+    for so in ("libstage2_maxsim.so", "libflash_attention.so", "libapprox_maxsim.so"):
+        if os.path.exists(os.path.join(BUILD_DIR, so)):
+            os.remove(os.path.join(BUILD_DIR, so))
+    t0 = time.perf_counter()
+    kernels_src = {"stage2_maxsim.cu": fm.build_kernel, "flash_attention.cu": fa.build_kernel,
+                   "approx_maxsim.cu": am.build_kernel}
+    with ThreadPoolExecutor(len(kernels_src)) as ex:
+        logs = dict(zip(kernels_src, ex.map(lambda build: build(), kernels_src.values())))
+    print(f"[build] {', '.join(kernels_src)} built in {time.perf_counter() - t0:.1f}s")
+    for src, log in logs.items():
+        for name, spills, regs in ptxas_resources(log):
+            print(f"[build] {src}: {name}: {spills}; {regs}")
+    no_spill = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+    for src, path_kernel in (("flash_attention.cu", "flash_mma_kernel<bf16,64>"),
+                             ("flash_attention.cu", "flash_mma_window_kernel<bf16,64>"),
+                             ("stage2_maxsim.cu", "stage2_mma_kernel<2>"),
+                             ("approx_maxsim.cu", "approx_maxsim_kernel<8>")):
+        found = [spills for name, spills, _ in ptxas_resources(logs[src]) if name == path_kernel]
+        check(found == [no_spill], f"{path_kernel}: ptxas reports {found}")
+    return logs
+
+
 def main() -> int:
     import torch
 
@@ -3319,33 +3522,10 @@ def main() -> int:
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
     from colbert_torch.models.bert import BertConfig
-    from colbert_torch.ops import approx_maxsim as am
-    from colbert_torch.ops import flash_attention as fa
-    from colbert_torch.ops import fused_maxsim as fm
     from colbert_torch.utils.build import BUILD_DIR
     from colbert_torch.utils.testing import bench_vocab_tokenizer, synthetic_passages
 
-    # one nvcc per kernel source, started together; always from the sources
-    # (a library left by an earlier run would hide ptxas's report)
-    for so in ("libstage2_maxsim.so", "libflash_attention.so", "libapprox_maxsim.so"):
-        if os.path.exists(os.path.join(BUILD_DIR, so)):
-            os.remove(os.path.join(BUILD_DIR, so))
-    t0 = time.perf_counter()
-    kernels_src = {"stage2_maxsim.cu": fm.build_kernel, "flash_attention.cu": fa.build_kernel,
-                   "approx_maxsim.cu": am.build_kernel}
-    with ThreadPoolExecutor(len(kernels_src)) as ex:
-        logs = dict(zip(kernels_src, ex.map(lambda build: build(), kernels_src.values())))
-    print(f"[build] {', '.join(kernels_src)} built in {time.perf_counter() - t0:.1f}s")
-    for src, log in logs.items():
-        for name, spills, regs in ptxas_resources(log):
-            print(f"[build] {src}: {name}: {spills}; {regs}")
-    no_spill = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
-    for src, path_kernel in (("flash_attention.cu", "flash_mma_kernel<bf16,64>"),
-                             ("stage2_maxsim.cu", "stage2_mma_kernel<2>"),
-                             ("approx_maxsim.cu", "approx_maxsim_kernel<8>")):
-        found = [spills for name, spills, _ in ptxas_resources(logs[src]) if name == path_kernel]
-        check(found == [no_spill], f"{path_kernel}: ptxas reports {found}")
-
+    build_kernels()
     max_err = kernel_vs_plain(device)
     stage2_sweep(device)
     index_dir = os.path.join(BUILD_DIR, "smoke_index")
@@ -3377,6 +3557,7 @@ def main() -> int:
           f"flash-routed {enc._flash_for(first[1].shape[1])}")
     fl = flash_vs_plain(device, first[2])
     flash_sweep(device, first[2])
+    fl["window"] = flash_window_phase(device)
     fl.update(flash_in_situ(enc, first))
     short = next(enc._doc_batches(synthetic_passages(enc.config.index_bsize, mean_words=110,
                                                      seed=11)))
@@ -3390,6 +3571,7 @@ def main() -> int:
         profile_build_steps(enc, first, build_dir)
     finally:
         shutil.rmtree(build_dir, ignore_errors=True)
+    mb = modernbert_build(device, BUILD_DIR)
     t_md = time.perf_counter()
     md.update(multidevice_build(enc.model, passages[:MD_BUILD_PASSAGES], BUILD_DIR))
     md_seconds["build"] = time.perf_counter() - t_md
@@ -3455,7 +3637,9 @@ def main() -> int:
         launches=bp["flash_launches"], max_abs_err=fl["max_abs_err"],
         ms=fl["kernel_ms"], kernel_ms=fl["kernel_ms"], plain_ms=fl["plain_ms"],
         bound_ms=fl["bound_ms"], bound_by=fl["bound_by"], library_ms=fl["library_ms"],
+        window=fl["window"],
         launches_by_path={"build": bp["flash_launches"],
+                          "build-modernbert": mb["flash_launches"],
                           "update": live["update_flash_launches"],
                           "train": tr["train_flash_launches"],
                           "examples": ex["examples_flash_launches"],

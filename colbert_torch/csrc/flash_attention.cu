@@ -54,6 +54,19 @@
 // kernel stays under half its bound, overlapping them (and wgmma with TMA
 // and a warp-specialised producer) is the next step.
 //
+// flash_mma_window_kernel<T, HD> is the same body with a window w (a
+// window >= 0 at the entry points): query i attends to keys j with |i - j| <= w,
+// ModernBERT's local layers at w = 64. Each block takes a 64-row q tile
+// (one 16-row slice per warp) and its key loop visits only the 64-key tiles
+// that meet [q0 - w, q0 + 63 + w]: three at w = 64, where a 128-row tile
+// would visit four for twice the rows. Inside a tile that holds keys beyond
+// some row's window, those scores are set to -inf after the scale and the
+// bias, so they weigh exactly 0. At w = 64 and hd = 64 the window's work is
+// ~64 FLOPs per byte of q, k, v and out (96 over the visited tiles), far
+// under the card's 295: the bytes bound it. With no window
+// (flash_mma_kernel) the body is the unwindowed code step for step: its
+// output is bit for bit what it was before the window existed.
+//
 // flash_kernel<T> (fp32 inputs, and bf16/fp16 at any other hd, a multiple
 // of 8 up to 128): fp32 FMAs on the CUDA cores. One block of 256 threads
 // takes one (b*h, 64-row tile of q); q's tile sits in shared memory
@@ -64,6 +77,8 @@
 // output in registers; the 16 threads that share a q row reduce its max and
 // sum with shuffles. A 64-key tile of pads contributes exp(bias - m) = 0.
 // It reads K and V once per 64-row q tile and is bound by its fp32 FMAs.
+// Given a window (window >= 0) it visits and masks as the windowed mma
+// kernel does.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -93,7 +108,7 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const float* __restrict__ bias,
-             T* __restrict__ out, int H, int S, int hd, float scale,
+             T* __restrict__ out, int H, int S, int hd, float scale, int window,
              int64_t sb, int64_t sh, int64_t ss,
              int64_t ob, int64_t oh, int64_t os) {
   extern __shared__ __align__(16) float smem[];
@@ -127,7 +142,13 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < kMaxJ; ++j) acc[i][j] = 0.f;
   }
 
-  for (int k0 = 0; k0 < S; k0 += kBlockK) {
+  // with a window, only the key tiles that meet [q0 - window, q0 + 63 + window]
+  int k_lo = 0, k_hi = S;
+  if (window >= 0) {
+    k_lo = max(q0 - window, 0) / kBlockK * kBlockK;
+    k_hi = min(S, ((q0 + kBlockQ - 1 + window) / kBlockK + 1) * kBlockK);
+  }
+  for (int k0 = k_lo; k0 < k_hi; k0 += kBlockK) {
     __syncthreads();  // the previous tile's readers are done (and qT is in)
     for (int i = tid; i < kBlockK * hd; i += kThreads) {
       const int c = i / hd, d = i - c * hd;
@@ -162,6 +183,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         s[i][c] += bS[tx * 4 + c];
+        if (window >= 0 && abs(q0 + ty * 4 + i - (k0 + tx * 4 + c)) > window) s[i][c] = -INFINITY;
         rm = fmaxf(rm, s[i][c]);
       }
 #pragma unroll
@@ -219,7 +241,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const float* bias,
-           void* out, int B, int H, int S, int hd, float scale, int64_t sb,
+           void* out, int B, int H, int S, int hd, float scale, int window, int64_t sb,
            int64_t sh, int64_t ss, int64_t ob, int64_t oh, int64_t os,
            cudaStream_t stream) {
   const size_t smem = sizeof(float) *
@@ -231,7 +253,7 @@ int launch(const void* q, const void* k, const void* v, const float* bias,
   const dim3 grid(static_cast<unsigned>(B * H), static_cast<unsigned>(S / kBlockQ));
   flash_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      bias, static_cast<T*>(out), H, S, hd, scale, sb, sh, ss, ob, oh, os);
+      bias, static_cast<T*>(out), H, S, hd, scale, window, sb, sh, ss, ob, oh, os);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -332,16 +354,19 @@ struct Mma<__half> {
 // defaults are the fastest of tune_flash.py's shapes on the H100; that
 // script rebuilds this file with -DFLASH_MMA_HD=<hd> -DFLASH_MMA_WARPS=<w>
 // -DFLASH_MMA_SLICES=<n> -DFLASH_MMA_MINB=<b> to time others at one hd.
-template <int HD>
+// A windowed launch (WIN) takes 64-row q tiles, one slice a warp: its key
+// loop covers the tiles that meet [q0 - w, q0 + 63 + w], three 64-key tiles
+// at w = 64 where a 128-row tile would need four for twice the rows.
+template <int HD, bool WIN = false>
 struct MmaShape {
 #if defined(FLASH_MMA_WARPS)
-  static constexpr bool kTuned = HD == FLASH_MMA_HD;
+  static constexpr bool kTuned = HD == FLASH_MMA_HD && !WIN;
   static constexpr int kWarps = kTuned ? FLASH_MMA_WARPS : 4;
-  static constexpr int kSlices = kTuned ? FLASH_MMA_SLICES : (HD <= 64 ? 2 : 1);
+  static constexpr int kSlices = kTuned ? FLASH_MMA_SLICES : (HD <= 64 && !WIN ? 2 : 1);
   static constexpr int kMinBlocks = kTuned ? FLASH_MMA_MINB : 1;
 #else
   static constexpr int kWarps = 4;
-  static constexpr int kSlices = HD <= 64 ? 2 : 1;
+  static constexpr int kSlices = HD <= 64 && !WIN ? 2 : 1;
   static constexpr int kMinBlocks = 1;
 #endif
   static constexpr int kThreads = 32 * kWarps;
@@ -354,14 +379,15 @@ struct MmaShape {
   }
 };
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(MmaShape<HD>::kThreads, MmaShape<HD>::kMinBlocks)
-flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ bias,
-                 T* __restrict__ out, int H, int S, float scale,
-                 int64_t sb, int64_t sh, int64_t ss,
-                 int64_t ob, int64_t oh, int64_t os) {
-  using Shape = MmaShape<HD>;
+// The body of flash_mma_kernel (WIN false) and of flash_mma_window_kernel
+// (WIN true: keys farther than `window` from the query are left out). With
+// WIN false it is the unwindowed kernel's code, step for step.
+template <typename T, int HD, bool WIN>
+__device__ __forceinline__ void flash_mma_body(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ bias, T* __restrict__ out, int H, int S, float scale,
+    int window, int64_t sb, int64_t sh, int64_t ss, int64_t ob, int64_t oh, int64_t os) {
+  using Shape = MmaShape<HD, WIN>;
   constexpr int kThreads = Shape::kThreads;
   constexpr int kBlockQ = Shape::kBlockQ;
   constexpr int kM = Shape::kSlices;
@@ -400,8 +426,17 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
       cp_async4(smem_addr(bS + st * kMmaBlockK + tid), biasb + j * kMmaBlockK + tid);
   };
 
+  // the key tiles this q tile visits: all of them, or those that meet the
+  // window around its rows
+  const int nk = S / kMmaBlockK;
+  int j0 = 0, j1 = nk;
+  if (WIN) {
+    j0 = max(q0 - window, 0) / kMmaBlockK;
+    j1 = min(nk, (q0 + kBlockQ - 1 + window) / kMmaBlockK + 1);
+  }
+
   load_rows(qS, q + base + static_cast<int64_t>(q0) * ss, kBlockQ);
-  load_tile(0, 0);
+  load_tile(j0, 0);
   cp_async_commit();
 
   // slice i of this warp: q rows r0 + 16 i + g (index 0) and + 8 (index 1)
@@ -417,14 +452,13 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int d = 0; d < kDT; ++d) o[i][d][0] = o[i][d][1] = o[i][d][2] = o[i][d][3] = 0.f;
   }
 
-  const int nk = S / kMmaBlockK;
-  for (int j = 0; j < nk; ++j) {
-    const int st = j & 1;
-    if (j + 1 < nk) load_tile(j + 1, st ^ 1);  // that stage was freed by the last barrier
+  for (int j = j0; j < j1; ++j) {
+    const int st = (j - j0) & 1;
+    if (j + 1 < j1) load_tile(j + 1, st ^ 1);  // that stage was freed by the last barrier
     cp_async_commit();
     cp_async_wait<1>();  // everything but tile j + 1 has landed
     __syncthreads();
-    if (j == 0) {
+    if (j == j0) {
 #pragma unroll
       for (int i = 0; i < kM; ++i)
 #pragma unroll
@@ -435,6 +469,10 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* kt = kS + st * kTile;
     const T* vt = vS + st * kTile;
     const float* bt = bS + st * kMmaBlockK;
+    // an edge tile holds keys outside some row's window: those scores are -inf
+    const int k0 = j * kMmaBlockK;
+    const bool edge = WIN && (k0 < q0 + kBlockQ - 1 - window ||
+                              k0 + kMmaBlockK - 1 > q0 + window);
 
     // s = q k^T: 16 kM rows x 64 keys per warp
     float s[kM][kNT][4];
@@ -472,6 +510,13 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
         s[i][n][1] = fmaf(s[i][n][1], scale, bb.y);
         s[i][n][2] = fmaf(s[i][n][2], scale, bb.x);
         s[i][n][3] = fmaf(s[i][n][3], scale, bb.y);
+        if (edge) {
+          const int c = k0 + n * 8 + 2 * t, ra = q0 + r0 + 16 * i + g, rb = ra + 8;
+          if (abs(ra - c) > window) s[i][n][0] = -INFINITY;
+          if (abs(ra - c - 1) > window) s[i][n][1] = -INFINITY;
+          if (abs(rb - c) > window) s[i][n][2] = -INFINITY;
+          if (abs(rb - c - 1) > window) s[i][n][3] = -INFINITY;
+        }
         mx0 = fmaxf(mx0, fmaxf(s[i][n][0], s[i][n][1]));
         mx1 = fmaxf(mx1, fmaxf(s[i][n][2], s[i][n][3]));
       }
@@ -548,37 +593,74 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int HD>
+__global__ void __launch_bounds__(MmaShape<HD>::kThreads, MmaShape<HD>::kMinBlocks)
+flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const float* __restrict__ bias,
+                 T* __restrict__ out, int H, int S, float scale,
+                 int64_t sb, int64_t sh, int64_t ss,
+                 int64_t ob, int64_t oh, int64_t os) {
+  flash_mma_body<T, HD, false>(q, k, v, bias, out, H, S, scale, 0, sb, sh, ss, ob, oh, os);
+}
+
+// Sliding-window attention: query i attends to keys j with |i - j| <= window
+// (and the bias); a name of its own, so the device trace tells its launches
+// from the unwindowed kernel's.
+template <typename T, int HD>
+__global__ void __launch_bounds__(MmaShape<HD, true>::kThreads, MmaShape<HD, true>::kMinBlocks)
+flash_mma_window_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const float* __restrict__ bias,
+                        T* __restrict__ out, int H, int S, float scale, int window,
+                        int64_t sb, int64_t sh, int64_t ss,
+                        int64_t ob, int64_t oh, int64_t os) {
+  flash_mma_body<T, HD, true>(q, k, v, bias, out, H, S, scale, window, sb, sh, ss, ob, oh,
+                              os);
+}
+
+// window < 0: flash_mma_kernel; else flash_mma_window_kernel.
+template <typename T, int HD>
 int launch_mma(const void* q, const void* k, const void* v, const float* bias, void* out,
-               int B, int H, int S, float scale, int64_t sb, int64_t sh, int64_t ss,
-               int64_t ob, int64_t oh, int64_t os, cudaStream_t stream) {
-  using Shape = MmaShape<HD>;
-  const size_t smem = Shape::smem_bytes(sizeof(T));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_mma_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+               int B, int H, int S, float scale, int window, int64_t sb, int64_t sh,
+               int64_t ss, int64_t ob, int64_t oh, int64_t os, cudaStream_t stream) {
+  const bool win = window >= 0;
+  const size_t smem = win ? MmaShape<HD, true>::smem_bytes(sizeof(T))
+                          : MmaShape<HD>::smem_bytes(sizeof(T));
+  const int block_q = win ? MmaShape<HD, true>::kBlockQ : MmaShape<HD>::kBlockQ;
+  const int threads = win ? MmaShape<HD, true>::kThreads : MmaShape<HD>::kThreads;
+  const void* fn = win ? reinterpret_cast<const void*>(flash_mma_window_kernel<T, HD>)
+                       : reinterpret_cast<const void*>(flash_mma_kernel<T, HD>);
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t blocks = static_cast<int64_t>(B) * H * (S / Shape::kBlockQ);
+  const int64_t blocks = static_cast<int64_t>(B) * H * (S / block_q);
   if (blocks > 0x7fffffff) return -1;
-  flash_mma_kernel<T, HD><<<static_cast<unsigned>(blocks), Shape::kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
-      static_cast<T*>(out), H, S, scale, sb, sh, ss, ob, oh, os);
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  T* ot = static_cast<T*>(out);
+  if (win)
+    flash_mma_window_kernel<T, HD><<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
+        qt, kt, vt, bias, ot, H, S, scale, window, sb, sh, ss, ob, oh, os);
+  else
+    flash_mma_kernel<T, HD><<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
+        qt, kt, vt, bias, ot, H, S, scale, sb, sh, ss, ob, oh, os);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_mma_hd(const void* q, const void* k, const void* v, const float* bias, void* out,
-                  int B, int H, int S, int hd, float scale, int64_t sb, int64_t sh,
-                  int64_t ss, int64_t ob, int64_t oh, int64_t os, cudaStream_t stream) {
+                  int B, int H, int S, int hd, float scale, int window, int64_t sb,
+                  int64_t sh, int64_t ss, int64_t ob, int64_t oh, int64_t os,
+                  cudaStream_t stream) {
   switch (hd) {
     case 32:
-      return launch_mma<T, 32>(q, k, v, bias, out, B, H, S, scale, sb, sh, ss, ob, oh, os,
-                               stream);
+      return launch_mma<T, 32>(q, k, v, bias, out, B, H, S, scale, window, sb, sh, ss, ob,
+                               oh, os, stream);
     case 64:
-      return launch_mma<T, 64>(q, k, v, bias, out, B, H, S, scale, sb, sh, ss, ob, oh, os,
-                               stream);
+      return launch_mma<T, 64>(q, k, v, bias, out, B, H, S, scale, window, sb, sh, ss, ob,
+                               oh, os, stream);
     case 128:
-      return launch_mma<T, 128>(q, k, v, bias, out, B, H, S, scale, sb, sh, ss, ob, oh, os,
-                                stream);
+      return launch_mma<T, 128>(q, k, v, bias, out, B, H, S, scale, window, sb, sh, ss, ob,
+                                oh, os, stream);
     default:
       return -1;
   }
@@ -588,53 +670,58 @@ int launch_mma_hd(const void* q, const void* k, const void* v, const float* bias
 
 // Plain C entry points (loaded with ctypes). dtype: 0 fp32, 1 bf16, 2 fp16.
 // Strides are in elements: (sb, sh, ss) for q, k and v, (ob, oh, os) for
-// out. Each returns 0 on success, the CUDA error code of a refused launch,
-// or -1 for arguments its kernel does not take (the Python wrapper checks
-// first).
+// out. window: -1 for none, else a half-width >= 0 (a window of S or more
+// leaves no key out, and is clamped to S). Each returns 0 on success, the
+// CUDA error code of a refused launch, or -1 for arguments its kernel does
+// not take (the Python wrapper checks first).
 
 // flash_kernel: fp32, bf16 or fp16; hd a multiple of 8 up to 128.
 extern "C" int colbert_flash_attention(
     const void* q, const void* k, const void* v, const float* bias, void* out,
-    int dtype, int B, int H, int S, int hd, float scale, int64_t sb,
+    int dtype, int B, int H, int S, int hd, float scale, int window, int64_t sb,
     int64_t sh, int64_t ss, int64_t ob, int64_t oh, int64_t os, void* stream) {
   if (hd <= 0 || hd % 8 != 0 || hd > 16 * kMaxJ || S % 128 != 0) return -1;
-  if (B < 0 || H <= 0) return -1;
+  if (B < 0 || H <= 0 || window < -1) return -1;
   if (B == 0 || S == 0) return 0;
+  if (window > S) window = S;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch<float>(q, k, v, bias, out, B, H, S, hd, scale, sb, sh, ss, ob, oh, os, st);
+      return launch<float>(q, k, v, bias, out, B, H, S, hd, scale, window, sb, sh, ss, ob, oh,
+                           os, st);
     case 1:
-      return launch<__nv_bfloat16>(q, k, v, bias, out, B, H, S, hd, scale, sb, sh, ss, ob,
-                                   oh, os, st);
+      return launch<__nv_bfloat16>(q, k, v, bias, out, B, H, S, hd, scale, window, sb, sh, ss,
+                                   ob, oh, os, st);
     case 2:
-      return launch<__half>(q, k, v, bias, out, B, H, S, hd, scale, sb, sh, ss, ob, oh, os,
-                            st);
+      return launch<__half>(q, k, v, bias, out, B, H, S, hd, scale, window, sb, sh, ss, ob, oh,
+                            os, st);
     default:
       return -1;
   }
 }
 
-// flash_mma_kernel: bf16 or fp16; hd 32, 64 or 128; every pointer 16-byte
-// aligned and every stride a multiple of 8 elements (16-byte cp.async).
+// flash_mma_kernel (window -1) / flash_mma_window_kernel: bf16 or fp16; hd
+// 32, 64 or 128; every pointer 16-byte aligned and every stride a multiple
+// of 8 elements (16-byte cp.async).
 extern "C" int colbert_flash_attention_mma(
     const void* q, const void* k, const void* v, const float* bias, void* out,
-    int dtype, int B, int H, int S, int hd, float scale, int64_t sb,
+    int dtype, int B, int H, int S, int hd, float scale, int window, int64_t sb,
     int64_t sh, int64_t ss, int64_t ob, int64_t oh, int64_t os, void* stream) {
-  if (S % 128 != 0 || B < 0 || H <= 0) return -1;
+  if (S % 128 != 0 || B < 0 || H <= 0 || window < -1) return -1;
   for (const void* p : {q, k, v, static_cast<const void*>(out)})
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return -1;
   for (int64_t st : {sb, sh, ss, ob, oh, os})
     if (st % 8 != 0) return -1;
   if (B == 0 || S == 0) return 0;
+  if (window > S) window = S;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 1:
-      return launch_mma_hd<__nv_bfloat16>(q, k, v, bias, out, B, H, S, hd, scale, sb, sh, ss,
-                                          ob, oh, os, st);
+      return launch_mma_hd<__nv_bfloat16>(q, k, v, bias, out, B, H, S, hd, scale, window, sb,
+                                          sh, ss, ob, oh, os, st);
     case 2:
-      return launch_mma_hd<__half>(q, k, v, bias, out, B, H, S, hd, scale, sb, sh, ss, ob, oh,
-                                   os, st);
+      return launch_mma_hd<__half>(q, k, v, bias, out, B, H, S, hd, scale, window, sb, sh, ss,
+                                   ob, oh, os, st);
     default:
       return -1;
   }

@@ -88,6 +88,19 @@ class LayerNorm(nn.Module):
                             self.eps).to(x.dtype)
 
 
+def _embedding(num: int, hidden: int) -> nn.Embedding:
+    """``nn.Embedding(num, hidden)``, its N(0, 1) draw skipped where the
+    table is built on the meta device (under ``with torch.device("meta")``,
+    weights to be assigned after): ``normal_`` on a meta tensor goes through
+    ``torch._refs``, whose first call imports ``torch._dynamo`` and sympy,
+    seconds of a process's set-up. Elsewhere the same draws as
+    ``nn.Embedding``'s own init."""
+    weight = torch.empty(num, hidden)
+    if weight.device.type != "meta":
+        nn.init.normal_(weight)
+    return nn.Embedding(num, hidden, _weight=weight)
+
+
 def _dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     """``x @ W + b`` with fp32 params cast to the activation dtype."""
     return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
@@ -195,9 +208,9 @@ class BertModel(nn.Module):
         super().__init__()
         self.config = cfg
         H = cfg.hidden_size
-        self.word = nn.Embedding(cfg.vocab_size, H)
-        self.position = nn.Embedding(cfg.max_position_embeddings, H)
-        self.token_type = nn.Embedding(cfg.type_vocab_size, H)
+        self.word = _embedding(cfg.vocab_size, H)
+        self.position = _embedding(cfg.max_position_embeddings, H)
+        self.token_type = _embedding(cfg.type_vocab_size, H)
         self.emb_ln = LayerNorm(H, cfg.layer_norm_eps)
         self.layers = nn.ModuleList(BertLayer(cfg) for _ in range(cfg.num_hidden_layers))
 

@@ -1,5 +1,10 @@
 """ColBERT = BERT + a hidden->dim linear head (port of ``colbert_tpu.models.colbert``).
 
+The encoder is BERT (:class:`~colbert_torch.models.bert.BertConfig`) or
+ModernBERT (:class:`~colbert_torch.models.modernbert.ModernBertConfig`,
+GTE-ModernColBERT's), built by the config's type; either way the backbone
+is the attribute ``bert`` and its config ``bert_config``.
+
 ``forward_normalized`` is ``_forward_normalized``: project the final hidden
 states (activation-dtype operands, fp32 accumulation), add the optional
 head bias, zero the positions outside ``keep_mask`` and L2-normalize with
@@ -24,6 +29,7 @@ import torch
 from torch import nn
 
 from colbert_torch.models.bert import BertConfig, BertModel
+from colbert_torch.models.modernbert import ModernBertConfig, ModernBertModel
 from colbert_torch.ops import codec as codec_ops
 
 __all__ = ["ColBERT", "DTYPES", "from_jax_params", "to_jax_params", "init_colbert",
@@ -33,17 +39,27 @@ DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
           "float32": torch.float32}
 
 
+def encoder_for(cfg: BertConfig | ModernBertConfig) -> nn.Module:
+    """A fresh encoder of the config's architecture."""
+    if isinstance(cfg, ModernBertConfig):
+        return ModernBertModel(cfg)
+    if isinstance(cfg, BertConfig):
+        return BertModel(cfg)
+    raise TypeError(f"no encoder architecture for a {type(cfg).__name__}")
+
+
 class ColBERT(nn.Module):
-    """``bert`` replaces the BERT of the model (a
+    """``bert`` replaces the encoder of the model (a
     :class:`~colbert_torch.models.bert.TensorParallelBert`, which
     :func:`colbert_torch.parallel.tp.shard_params` builds); by default it is
-    a fresh :class:`BertModel`."""
+    a fresh :class:`BertModel` or :class:`ModernBertModel`, by the type of
+    ``cfg``."""
 
-    def __init__(self, cfg: BertConfig, dim: int = 128, *, linear_bias: bool = False,
-                 bert=None):
+    def __init__(self, cfg: BertConfig | ModernBertConfig, dim: int = 128, *,
+                 linear_bias: bool = False, bert=None):
         super().__init__()
         self.bert_config = cfg
-        self.bert = BertModel(cfg) if bert is None else bert
+        self.bert = encoder_for(cfg) if bert is None else bert
         self.linear = nn.Linear(cfg.hidden_size, dim, bias=linear_bias)
 
     @property
@@ -151,7 +167,8 @@ def compact_doc_embeddings(emb: np.ndarray, keep: np.ndarray) -> tuple[np.ndarra
     return np.ascontiguousarray(emb[keep]), doclens
 
 
-def init_colbert(cfg: BertConfig, dim: int = 128, *, generator: torch.Generator,
+def init_colbert(cfg: BertConfig | ModernBertConfig, dim: int = 128, *,
+                 generator: torch.Generator,
                  linear_bias: bool = False) -> ColBERT:
     """Random ColBERT with the JAX package's init: dense kernels and
     embeddings N(0, 0.02^2), zero biases, unit layer-norm scales. Draws come

@@ -17,7 +17,8 @@ the build path:
     lengths >= ``config.flash_min_seqlen`` that are multiples of 128
     (length buckets are then forced to 128, ``strict_multiple``). On the
     CPU nothing routes there and buckets stay as configured, as in the JAX
-    package on its CPU backend,
+    package on its CPU backend. A ModernBERT model sends both its layer
+    kinds there, local layers windowed,
   - with a mesh attached (:meth:`ColBERTEncoder.attach_mesh`) every batch
     pads to a multiple of the data axis and each data shard encodes its
     rows on its own device (and, with a model axis above 1, through a
@@ -35,6 +36,7 @@ import torch
 
 from colbert_torch.config import ColBERTConfig
 from colbert_torch.models.colbert import ColBERT, skiplist_keep_mask
+from colbert_torch.models.modernbert import ModernBertConfig
 from colbert_torch.ops import codec as codec_ops
 from colbert_torch.tokenization.native import NativeWordPiece
 from colbert_torch.tokenization.tensorize import (
@@ -133,6 +135,11 @@ class ColBERTEncoder:
     skiplist: list[int] = field(default_factory=list)
 
     def __post_init__(self) -> None:
+        positions = self.model.bert_config.max_position_embeddings
+        if isinstance(self.model.bert_config, ModernBertConfig) and \
+                self.config.doc_maxlen > positions:
+            raise ValueError(f"doc_maxlen {self.config.doc_maxlen} is above the "
+                             f"{positions} positions ModernBERT declares")
         self.device = resolve_device(self.device)
         self.model = self.model.to(self.device).eval()
         if not self.skiplist:
@@ -232,8 +239,10 @@ class ColBERTEncoder:
         return torch.cat([o.to(self.device) for o in outs])
 
     def tokenize_batch(self, texts) -> list[list[int]]:
-        """Lists and byte-backed Collections both go to the native tokenizer."""
-        return self._native_tok.encode_batch(texts)
+        """Lists and byte-backed Collections both go to the native tokenizer,
+        which keeps passages of up to ``doc_maxlen`` tokens (at least 512):
+        a longer one goes to the Python tokenizer."""
+        return self._native_tok.encode_batch(texts, self.config.doc_maxlen)
 
     def _flash_for(self, padded_len: int) -> bool:
         """Per-batch routing of attention to the flash kernel."""

@@ -36,6 +36,18 @@ _ST_DTYPES = {
 }
 
 
+def _refuse_other_arch(cfg) -> None:
+    """A ``ValueError`` naming the architecture for anything but BERT: a
+    port config (``ModernBertConfig``) or an HF ``config.json`` dict whose
+    ``model_type`` is another's. Only BERT checkpoints are read and
+    written."""
+    name = (cfg.get("model_type", "bert") if isinstance(cfg, dict)
+            else "bert" if isinstance(cfg, BertConfig) else type(cfg).__name__)
+    if name != "bert":
+        raise ValueError(f"checkpoints of {name} are not read or written: the loader "
+                         "handles BERT ColBERT checkpoints only")
+
+
 def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
     """Every tensor of a ``.safetensors`` file, on the CPU."""
     with open(path, "rb") as f:
@@ -137,6 +149,7 @@ def state_dict_from_model(model: ColBERT, *, prefix: str = "bert.") -> Dict[str,
     def f32(t):
         return t.detach().to("cpu", torch.float32)
 
+    _refuse_other_arch(model.bert_config)
     bert = model.bert
     sd = {
         f"{prefix}embeddings.word_embeddings.weight": f32(bert.word.weight),
@@ -165,6 +178,7 @@ def save_checkpoint(directory: str, model: ColBERT, tokenizer: WordPieceTokenize
     :func:`load_checkpoint`, and the JAX package's loader, read back. A
     tokenizer whose vocab ids are not ``0..n-1`` cannot be written as
     ``vocab.txt`` and is refused before anything is written."""
+    _refuse_other_arch(model.bert_config)
     ids = sorted(tokenizer.vocab.values())
     if ids != list(range(len(ids))):
         raise ValueError("tokenizer vocab ids must be contiguous to export vocab.txt")
@@ -187,7 +201,9 @@ def load_checkpoint(
     local loader (local_loading.jl:97-99)."""
     dev = resolve_device(device)
     with open(os.path.join(directory, "config.json")) as f:
-        cfg = BertConfig.from_hf_dict(json.load(f))
+        hf = json.load(f)
+    _refuse_other_arch(hf)
+    cfg = BertConfig.from_hf_dict(hf)
     raw = load_state_dict(directory)
     linear_key = next((k for k in raw if k in ("linear.weight", "model.linear.weight")), None)
     if linear_key is None:

@@ -39,6 +39,11 @@ _ROW = ("attn_out", "mlp_out")
 
 
 def validate_tp(cfg: BertConfig, n_model: int) -> None:
+    """Refuse a model the mesh cannot split: the mesh paths (replicas, the
+    Megatron split, the mesh trainer) run BERT only."""
+    if not isinstance(cfg, BertConfig):
+        raise ValueError(f"the mesh paths run BERT only, not {type(cfg).__name__} "
+                         "(ModernBERT encodes and indexes on one device)")
     if n_model <= 1:
         return
     if cfg.num_attention_heads % n_model:

@@ -118,13 +118,14 @@ class NativeWordPiece:
         )
         return ids, lens
 
-    def encode_batch(self, texts) -> list[list[int]]:
+    def encode_batch(self, texts, width: int = 0) -> list[list[int]]:
         """Tokenize a list[str] OR a byte-backed ``Collection`` (the latter
         skips the per-text str decode/encode round-trip entirely — bytes go
-        from the mmap'd file straight into the C++ tokenizer)."""
+        from the mmap'd file straight into the C++ tokenizer). Texts of up
+        to ``max(width, max_tokens)`` tokens stay in the library."""
         from colbert_torch.storage.collection import Collection
 
-        run = self._native(texts, self.max_tokens)
+        run = self._native(texts, max(width, self.max_tokens))
         if run is None:
             return self.tokenizer.encode_batch(
                 list(texts) if isinstance(texts, Collection) else texts

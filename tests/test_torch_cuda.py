@@ -6,6 +6,11 @@ for dim 128 and Lq <= 32, ``simt`` otherwise); the flash-attention kernel vs its
 the output, against the plain version on the fp32 upcast of the same
 inputs), each case through the kernel its dtype and head dim select
 (tensor-core ``mma`` for bf16/fp16 at hd 32/64/128, ``simt`` otherwise);
+the windowed kernel (ModernBERT's local layers: bf16, hd 64, window 64,
+S 1,024 and 8,192 with ragged pads) against the plain version, a window
+of S bit for bit the unwindowed kernel, a small ModernBERT's flash route
+against its materialized one, and a small ModernBERT index built through
+the kernels and searched by the captured serving program;
 the device and alignment rules of the wrappers; and the life of a live index
 on the card against the port on the CPU: ``IndexUpdater.add`` (codes equal up
 to near-ties), the exact oracle (within 1e-4) and a ``BatchingSearcher``
@@ -226,6 +231,139 @@ def test_flash_bsh_takes_the_mma_kernel(cuda_device, dtype):
     torch.cuda.synchronize()
     assert fa.flash_attention.variant_launches["mma"] == mma + 2
     assert torch.equal(got, want)
+
+
+def _ragged_case(seed, B, H, S, hd, device, dtype=torch.bfloat16):
+    """q, k, v and a pad bias whose rows end at ragged lengths (one row
+    whole, the others cut inside a 64-key tile)."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B * H, S, hd)).astype(np.float32))
+               .to(device, dtype) for _ in range(3))
+    mask = np.zeros((B, S), bool)
+    for b, n in enumerate([S, S - 37, S // 2 + 5, 70][:B]):
+        mask[b, :n] = True
+    bias = np.where(mask, 0.0, np.finfo(np.float32).min).astype(np.float32)
+    return q, k, v, torch.from_numpy(bias).to(device), torch.from_numpy(mask).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,B,hd,dtype", [(1024, 4, 64, torch.bfloat16),
+                                          (8192, 2, 64, torch.bfloat16),
+                                          (1024, 4, 64, torch.float32),
+                                          (1024, 4, 40, torch.bfloat16)])
+def test_windowed_flash_kernel_matches_plain(cuda_device, S, B, hd, dtype):
+    # ModernBERT's window of 64: bf16 at hd 64 through flash_mma_window_kernel,
+    # fp32 and hd 40 through flash_kernel with the window, against the plain
+    # version on the fp32 upcast of the same inputs; rows past a sequence's
+    # end (pads) are left out of the comparison
+    from colbert_torch.utils import tracing
+
+    H = 3
+    q, k, v, bias, mask = _ragged_case(S + B, B, H, S, hd, cuda_device, dtype)
+    variant = fa._variant(dtype, hd)
+    before = (fa.flash_attention.launches, fa.flash_attention.window_launches,
+              fa.flash_attention.variant_launches[variant])
+    with tracing.recording() as t:
+        got = fa.flash_attention(q, k, v, bias, num_heads=H, window=64)
+    want = fa.flash_attention_plain(q.float(), k.float(), v.float(), bias, num_heads=H,
+                                    window=64)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches, fa.flash_attention.window_launches,
+            fa.flash_attention.variant_launches[variant]) == tuple(x + 1 for x in before)
+    assert t.counters == {"attn_window_tile_pairs": B * H * fa.window_tile_pairs(S, 64)}
+    real = mask.repeat_interleave(H, dim=0)
+    err = (got.float() - want).abs()[real]
+    if dtype == torch.float32:
+        assert float(err.max()) <= TOL
+    else:
+        assert bool((err <= 8e-3 * want[real].abs().clamp(min=1.0)).all())
+    assert bool(torch.isfinite(got.float()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [256, 1024])
+def test_no_window_route_is_the_unwindowed_kernel_bit_for_bit(cuda_device, S):
+    # a window of S leaves no key out: the windowed kernel then runs the
+    # unwindowed kernel's arithmetic row for row (its 64-row q tiles only
+    # regroup the rows), so the two agree bit for bit; the unwindowed route
+    # (window None) is flash_mma_kernel as before, held to the plain
+    # version by test_flash_kernel_matches_plain
+    B, H, hd = 2, 3, 64
+    q, k, v, bias, _ = _ragged_case(S, B, H, S, hd, cuda_device)
+    plain = fa.flash_attention(q, k, v, bias, num_heads=H)
+    wide = fa.flash_attention(q, k, v, bias, num_heads=H, window=S)
+    torch.cuda.synchronize()
+    assert torch.equal(plain, wide)
+
+
+@pytest.mark.cuda
+def test_modernbert_flash_route_on_the_card(cuda_device):
+    # a 3-layer ModernBERT at hd 64 (global, local, local) in bf16 at S=1024:
+    # both layer kinds through the kernels against the materialized route
+    # with the band (cosine 0.999 per real position), one launch per layer
+    from colbert_torch.models.colbert import ColBERT, init_colbert
+    from colbert_torch.models.modernbert import ModernBertConfig
+    from colbert_torch.utils import tracing
+
+    cfg = ModernBertConfig(vocab_size=512, hidden_size=128, num_hidden_layers=3,
+                           num_attention_heads=2, intermediate_size=192,
+                           max_position_embeddings=2048)
+    model = init_colbert(cfg, 32, generator=torch.Generator().manual_seed(0))
+    model = model.to(cuda_device).eval()
+    ids = torch.randint(5, 512, (2, 1024), generator=torch.Generator().manual_seed(1))
+    mask = torch.ones(2, 1024, dtype=torch.bool)
+    mask[1, 700:] = False
+    ids, mask = ids.to(cuda_device), mask.to(cuda_device)
+    with torch.no_grad(), tracing.recording() as t:
+        got = model.forward_normalized(ids, mask, mask, use_flash=True)
+        want = model.forward_normalized(ids, mask, mask)
+    torch.cuda.synchronize()
+    assert t.counters == {"attn_global_launches": 1, "attn_window_launches": 2,
+                          "attn_materialized_launches": 3,
+                          "attn_window_tile_pairs": 2 * 2 * 2 * fa.window_tile_pairs(1024, 64)}
+    cos = (got * want).sum(-1)[mask]
+    assert float(cos.min()) > 0.999
+
+
+@pytest.mark.cuda
+def test_modernbert_index_and_captured_search_on_the_card(cuda_device, tmp_path):
+    # a small ModernBERT (hd 64) indexes 48 passages of 150-400 words on the
+    # card, every doc batch through the kernels (flash_min_seqlen 256: one
+    # global and two windowed launches a batch, none materialized), and the
+    # captured serving program finds each of 8 passages from its opening
+    # words
+    from colbert_torch.config import ColBERTConfig
+    from colbert_torch.indexing.builder import Indexer
+    from colbert_torch.models.colbert import init_colbert
+    from colbert_torch.models.encoder import ColBERTEncoder
+    from colbert_torch.models.modernbert import ModernBertConfig
+    from colbert_torch.retrieval.searcher import Searcher
+    from colbert_torch.tokenization.wordpiece import WordPieceTokenizer
+    from colbert_torch.utils import tracing
+    from colbert_torch.utils.testing import make_vocab
+
+    cfg = ModernBertConfig(vocab_size=2048, hidden_size=128, num_hidden_layers=3,
+                           num_attention_heads=2, intermediate_size=192,
+                           max_position_embeddings=1024)
+    model = init_colbert(cfg, 32, generator=torch.Generator().manual_seed(2))
+    ccfg = ColBERTConfig(dim=32, nbits=2, doc_maxlen=1024, query_maxlen=32, kmeans_niters=2,
+                         index_bsize=16, flash_min_seqlen=256)
+    enc = ColBERTEncoder(model, WordPieceTokenizer(make_vocab(cfg.vocab_size - 52)), ccfg,
+                         device=cuda_device)
+    rng = np.random.default_rng(4)
+    passages = [" ".join(f"w{j}" for j in rng.integers(0, 1900, n))
+                for n in rng.integers(150, 400, 48)]
+    path = str(tmp_path / "index")
+    with tracing.recording() as t:
+        Indexer(ccfg, encoder=enc, collection=passages, device=cuda_device).index(path)
+    batches = t.counters["doc_batches"]
+    assert t.counters["attn_global_launches"] == batches
+    assert t.counters["attn_window_launches"] == 2 * batches
+    assert "attn_materialized_launches" not in t.counters
+    searcher = Searcher(path, encoder=enc, config=ccfg, device=cuda_device)
+    queries = [" ".join(p.split()[:25]) for p in passages[:8]]
+    pids, _ = searcher.search_batch(queries, k=5)
+    assert pids[:, 0].tolist() == list(range(8))
 
 
 @pytest.mark.cuda

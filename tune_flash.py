@@ -115,14 +115,14 @@ def main() -> int:
         fn = ctypes.CDLL(so).colbert_flash_attention_mma
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float]
-                       + [ctypes.c_int64] * 6 + [ctypes.c_void_p])
+                       + [ctypes.c_int] + [ctypes.c_int64] * 6 + [ctypes.c_void_p])
         B, q, k, v, bias, want, n = cases[hd]
         out = torch.empty_like(q)
         strides = (H * S * hd, S * hd, hd)
 
         def run():
             rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                    1, B, H, S, hd, 1.0 / math.sqrt(hd), *strides, *strides,
+                    1, B, H, S, hd, 1.0 / math.sqrt(hd), -1, *strides, *strides,
                     torch.cuda.current_stream().cuda_stream)
             if rc:
                 raise RuntimeError(f"launch failed (code {rc})")
