@@ -1476,11 +1476,12 @@ def build_path(enc, passages, index_dir: str) -> dict:
           + json.dumps(plan["timings"]))
     print("[build] plan " + json.dumps({k: v for k, v in plan.items()
                                          if k not in ("timings", "embedding_offsets")}))
+    programs = enc.programs.stats()
     print(f"[build] encoded batches {seen['batches']} (flash-routed "
           f"{seen['flash_batches']}), padded token rows {seen['rows']}, flash kernel "
           f"launches {launches} (expected {layers} x {seen['flash_batches']}; by kernel "
           f"{by_variant}); peak device "
-          f"memory {peak / 2**30:.2f} GiB")
+          f"memory {peak / 2**30:.2f} GiB; doc programs {json.dumps(programs)}")
 
     check(plan["num_documents"] == n and fmt.check_all_files_saved(index_dir) == [],
           "build: incomplete index")
@@ -1502,7 +1503,7 @@ def build_path(enc, passages, index_dir: str) -> dict:
         check(by_variant == {"mma": launches, "simt": 0},
               f"build: flash launches by kernel {by_variant}, expected all mma")
     return dict(build_seconds=wall, passages_per_s=n / wall, timings=plan["timings"],
-                flash_launches=launches, encoded_batches=seen["batches"],
+                flash_launches=launches, encoded_batches=seen["batches"], doc_programs=programs,
                 num_partitions=plan["num_partitions"], num_embeddings=plan["num_embeddings"])
 
 

@@ -23,7 +23,17 @@ the build path:
     pads to a multiple of the data axis and each data shard encodes its
     rows on its own device (and, with a model axis above 1, through a
     tensor-parallel model); doc outputs then leave the device as padded
-    blocks, not compacted rows, and the pad rows are dropped at drain.
+    blocks, not compacted rows, and the pad rows are dropped at drain,
+  - with no mesh, a full batch (``index_bsize`` rows) of at most
+    ``MAX_GRAPH_TOKENS`` padded tokens replays one captured program per
+    static key (:mod:`colbert_torch.retrieval.program`: the forward and
+    the compaction, one CUDA graph on a card, the same code run eagerly on
+    its static buffers on the CPU), the encoder's own ``programs``; the
+    codec runs eagerly after the replay, on its device outputs. Every other
+    batch (a group's last, a long one, a mesh's) runs op by op. Counters:
+    ``doc_replays``, ``doc_captures`` (a key's first batch: its warm-up,
+    then on a card its capture, counted with ``doc_eager_batches``) and
+    ``doc_eager_batches``.
 """
 
 from __future__ import annotations
@@ -35,9 +45,10 @@ import numpy as np
 import torch
 
 from colbert_torch.config import ColBERTConfig
-from colbert_torch.models.colbert import ColBERT, skiplist_keep_mask
+from colbert_torch.models.colbert import ColBERT, compress_rows, skiplist_keep_mask
 from colbert_torch.models.modernbert import ModernBertConfig
 from colbert_torch.ops import codec as codec_ops
+from colbert_torch.retrieval.program import Program, ProgramCache, input_dtype, tensor_signature
 from colbert_torch.tokenization.native import NativeWordPiece
 from colbert_torch.tokenization.tensorize import (
     build_skiplist,
@@ -48,11 +59,20 @@ from colbert_torch.tokenization.wordpiece import WordPieceTokenizer
 from colbert_torch.utils import tracing
 from colbert_torch.utils.build import resolve_device
 
-__all__ = ["ColBERTEncoder", "MAX_INFLIGHT"]
+__all__ = ["ColBERTEncoder", "DOC_PROGRAMS", "MAX_GRAPH_TOKENS", "MAX_INFLIGHT"]
 
 # batches allowed in flight (launched, host copy not yet read) before the
 # pipeline drains the oldest; bounds the device memory held by outputs
 MAX_INFLIGHT = 8
+# padded tokens (B x L) up to which a full doc batch replays a captured
+# program: index_bsize 64 x BERT's 512 positions. Past it a batch keeps the
+# card busy for hundreds of ms against tens of ms of launches (ModernBERT's
+# long documents), so a graph would add only its pool and its capture
+MAX_GRAPH_TOKENS = 32_768
+# doc programs an encoder keeps: every (route, L, M) key of a build, with
+# room for the other length buckets up to doc_maxlen, so a build never
+# evicts and captures again
+DOC_PROGRAMS = 32
 
 
 def _take_rows(keep: np.ndarray) -> tuple[np.ndarray, int]:
@@ -160,6 +180,7 @@ class ColBERTEncoder:
             self.length_bucket = 128
         self.mesh = None
         self._replicas: dict[int, ColBERT] = {}
+        self.programs = ProgramCache(DOC_PROGRAMS)
 
     def attach_mesh(self, mesh) -> None:
         """Encode and train data-parallel over ``mesh``: batches split over
@@ -238,6 +259,45 @@ class ColBERTEncoder:
                          for i in range(len(outs[0])))
         return torch.cat([o.to(self.device) for o in outs])
 
+    def _captured(self, ids: np.ndarray) -> bool:
+        """Whether a doc batch replays a captured program: a full batch of
+        at most ``MAX_GRAPH_TOKENS`` padded tokens, with no mesh."""
+        B, L = ids.shape
+        return self.mesh is None and B == self.config.index_bsize and B * L <= MAX_GRAPH_TOKENS
+
+    def _doc_signature(self) -> tuple:
+        """What a doc program bakes in about the model: each parameter's
+        address, shape and dtype (a reload or a re-bound parameter gives new
+        keys; an in-place update is read by the next replay)."""
+        return tensor_signature(list(self.model.parameters()))
+
+    def _replay(self, method: str, signature: tuple, arrays: Sequence[np.ndarray], *,
+                to_host: bool, **kw) -> tuple[list[torch.Tensor], torch.cuda.Event | None]:
+        """``self.model.<method>(*arrays, **kw)`` on one full doc batch through
+        the program of its key (the method, the arrays' shapes, ``kw`` and the
+        model's ``signature``) -> (outputs, the event after which host outputs
+        are readable, or None). ``to_host``: the outputs arrive in pinned
+        host memory; else they stay on the device, read on the caller's
+        stream before the next batch."""
+        shapes = [a.shape for a in arrays]
+        key = (method, tuple(shapes), tuple(sorted(kw.items())), signature)
+        model = self.model
+
+        def run(*inputs):
+            out = getattr(model, method)(*inputs, **kw)
+            return out if isinstance(out, tuple) else (out,)
+
+        prog = self.programs.get(key, lambda: Program(
+            run, shapes, [input_dtype(a) for a in arrays], self.device))
+        first = not prog.launches
+        outs, ready, _ = prog.launch(*arrays, to_host=to_host)
+        if first:
+            tracing.count("doc_captures")
+            tracing.count("doc_eager_batches")
+        else:
+            tracing.count("doc_replays")
+        return outs, ready
+
     def tokenize_batch(self, texts) -> list[list[int]]:
         """Lists and byte-backed Collections both go to the native tokenizer,
         which keeps passages of up to ``doc_maxlen`` tokens (at least 512):
@@ -290,9 +350,10 @@ class ColBERTEncoder:
 
     def _pipeline_batches(self, passages, dispatch):
         """Launch every doc batch with at most ``MAX_INFLIGHT`` host copies
-        outstanding. ``dispatch(idx, ids, mask, keep) -> (tuple of device
-        tensors, nrows)``, ``nrows`` being how many leading rows of each
-        output are real. -> (drained [(idx, keep, host arrays...)], doclens)."""
+        outstanding. ``dispatch(idx, ids, mask, keep) -> (list of (host
+        tensor, event or None) copies, nrows)``, ``nrows`` being how many
+        leading rows of each output are real. -> (drained [(idx, keep, host
+        arrays...)], doclens)."""
         doclens = np.zeros((len(passages),), np.int64)
 
         def drain(item):
@@ -310,9 +371,9 @@ class ColBERTEncoder:
         with torch.no_grad():
             for idx, ids, mask, keep in self._doc_batches(passages):
                 with tracing.span("doc_dispatch"):
-                    outs, nrows = dispatch(idx, ids, mask, keep)
+                    copies, nrows = dispatch(idx, ids, mask, keep)
                     doclens[idx] = keep.sum(axis=1)
-                    pending.append((idx, keep, [_start_host_copy(o) for o in outs], nrows))
+                    pending.append((idx, keep, copies, nrows))
                 if len(pending) > MAX_INFLIGHT:
                     drained.append(drain(pending.pop(0)))
         drained.extend(drain(p) for p in pending)
@@ -328,16 +389,26 @@ class ColBERTEncoder:
             return np.zeros((0, self.dim), np.float32), np.zeros((0,), np.int64)
 
         compact = self.mesh is None  # a mesh ships padded blocks
+        signature = self._doc_signature()
 
         def dispatch(idx, ids, mask, keep):
             kw = dict(dtype_name=cfg.activation_dtype, out_dtype_name=cfg.transfer_dtype,
                       use_flash=self._flash_for(ids.shape[1]))
+            if self._captured(ids):
+                take, v = _take_rows(keep)
+                with tracing.span("forward"):
+                    outs, ready = self._replay("encode_compact_batch", signature,
+                                               (ids, mask, keep, take), to_host=True, **kw)
+                return [(o, ready) for o in outs], v
+            tracing.count("doc_eager_batches")
             if not compact:
-                return (self._forward("encode_batch", ids, mask, keep, **kw),), len(idx)
+                emb = self._forward("encode_batch", ids, mask, keep, **kw)
+                return [_start_host_copy(emb)], len(idx)
             take, v = _take_rows(keep)
             ids_d, mask_d, keep_d, take_d = self._put_batch(ids, mask, keep, take)
             with tracing.span("forward"):
-                return (self.model.encode_compact_batch(ids_d, mask_d, keep_d, take_d, **kw),), v
+                emb = self.model.encode_compact_batch(ids_d, mask_d, keep_d, take_d, **kw)
+            return [_start_host_copy(emb)], v
 
         drained, doclens = self._pipeline_batches(passages, dispatch)
         with tracing.span("doc_scatter"):
@@ -386,11 +457,18 @@ class ColBERTEncoder:
         layout: list[tuple] = []
         buf = torch.zeros((padded, self.dim), dtype=torch.bfloat16, device=self.device)
         offset = 0
+        signature = self._doc_signature()
         for idx, ids, mask, keep in batches:
             with tracing.span("doc_dispatch"):
-                emb = self._forward("encode_batch", ids, mask, keep,
-                                    dtype_name=cfg.activation_dtype,
-                                    use_flash=self._flash_for(ids.shape[1]))
+                kw = dict(dtype_name=cfg.activation_dtype,
+                          use_flash=self._flash_for(ids.shape[1]))
+                if self._captured(ids):
+                    with tracing.span("forward"):
+                        (emb,), _ = self._replay("encode_batch", signature, (ids, mask, keep),
+                                                 to_host=False, **kw)
+                else:
+                    tracing.count("doc_eager_batches")
+                    emb = self._forward("encode_batch", ids, mask, keep, **kw)
                 B, L, dim = emb.shape  # B counts a mesh's pad rows (valid=False)
                 buf[offset:offset + B * L] = emb.reshape(B * L, dim)
                 valid[offset:offset + len(idx) * L] = keep.reshape(-1)
@@ -441,18 +519,30 @@ class ColBERTEncoder:
                     np.zeros((0,), np.int64))
 
         compact = self.mesh is None  # a mesh ships padded blocks
+        signature = self._doc_signature()
 
         def dispatch(idx, ids, mask, keep):
-            kw = dict(dtype_name=cfg.activation_dtype, nbits=nbits,
-                      use_flash=self._flash_for(ids.shape[1]))
+            kw = dict(dtype_name=cfg.activation_dtype, use_flash=self._flash_for(ids.shape[1]))
+            if self._captured(ids):
+                take, v = _take_rows(keep)
+                # the codec runs eagerly after the replay, so the codebook's
+                # size is no part of the key
+                with tracing.span("forward"):
+                    (flat,), _ = self._replay("forward_compact", signature,
+                                              (ids, mask, keep, take), to_host=False, **kw)
+                    outs = compress_rows(flat, centroids, bucket_cutoffs, nbits)
+                return [_start_host_copy(o) for o in outs], v
+            tracing.count("doc_eager_batches")
             if not compact:
-                return self._forward("encode_compress_batch", ids, mask, keep, centroids,
-                                     bucket_cutoffs, **kw), len(idx)
+                outs = self._forward("encode_compress_batch", ids, mask, keep, centroids,
+                                     bucket_cutoffs, nbits=nbits, **kw)
+                return [_start_host_copy(o) for o in outs], len(idx)
             take, v = _take_rows(keep)
             ids_d, mask_d, keep_d, take_d = self._put_batch(ids, mask, keep, take)
             with tracing.span("forward"):
-                return self.model.encode_compress_compact_batch(
-                    ids_d, mask_d, keep_d, centroids, bucket_cutoffs, take_d, **kw), v
+                outs = self.model.encode_compress_compact_batch(
+                    ids_d, mask_d, keep_d, centroids, bucket_cutoffs, take_d, nbits=nbits, **kw)
+            return [_start_host_copy(o) for o in outs], v
 
         drained, doclens = self._pipeline_batches(passages, dispatch)
         with tracing.span("doc_scatter"):

@@ -35,8 +35,17 @@ route in its place.
 
 A replay never enters the kernels' Python wrappers, so the launches a
 capture records (``stage2_maxsim``, ``flash_attention`` and
-``approx_maxsim`` counts, by kernel) are taken back out of the counts after the capture and added on
-each replay: the counts keep saying how many times each kernel ran.
+``approx_maxsim`` counts, by kernel, and ``flash_attention``'s windowed
+launches) are taken back out of the counts after the capture and added on
+each replay: the counts keep saying how many times each kernel ran. The
+capture's tracing counts (:func:`colbert_torch.utils.tracing.diverted`:
+ModernBERT's attention routes, the windowed tile pairs) are added to each
+replay's in the same way.
+
+A launch can also leave its outputs on the device (``to_host=False``, the
+doc encoder's codec and sample buffer): the caller reads them on its own
+stream, which waits for the replay, and the next launch of the program
+waits for that stream before it overwrites them.
 
 :class:`ProgramCache` keys programs on the search knobs, the batch shape
 and the addresses, shapes and dtypes of every tensor a program reads (so a
@@ -63,7 +72,7 @@ import torch
 from colbert_torch.utils import tracing
 
 __all__ = ["Program", "ProgramCache", "MAX_PROGRAMS", "STAGING_SLOTS",
-           "capture", "tensor_signature"]
+           "capture", "input_dtype", "tensor_signature"]
 
 # programs kept per index: every batch bucket of one operating point
 # (Searcher.QUERY_BATCH_BUCKETS) fits, a sweep of points cycles through
@@ -111,6 +120,13 @@ def tensor_signature(tensors: Sequence[torch.Tensor | None]) -> tuple:
                  for t in tensors)
 
 
+def input_dtype(array) -> torch.dtype:
+    """The device dtype of a host batch array: int32 token ids widen to
+    int64, as ``ColBERTEncoder._put_batch`` widens them."""
+    dtype = torch.as_tensor(array[:0]).dtype
+    return torch.int64 if dtype == torch.int32 else dtype
+
+
 def _counted_wrappers():
     from colbert_torch.ops.approx_maxsim import approx_maxsim
     from colbert_torch.ops.flash_attention import flash_attention
@@ -130,6 +146,18 @@ def _add_launches(delta: list[dict], sign: int = 1) -> None:
             w.launches += sign * n
 
 
+def _window_launches() -> int:
+    from colbert_torch.ops.flash_attention import flash_attention
+
+    return flash_attention.window_launches
+
+
+def _add_window_launches(n: int) -> None:
+    from colbert_torch.ops.flash_attention import flash_attention
+
+    flash_attention.window_launches += n
+
+
 class Program:
     """One static program: ``fn(*inputs) -> tuple of output tensors`` over
     static input buffers of the given shapes and dtypes on ``device``."""
@@ -143,10 +171,13 @@ class Program:
         self.outputs = None
         self.graph = None
         self.lock = threading.Lock()
+        self.launches = 0
         self.replays = 0
         self.capture_s = 0.0
         self.pool_bytes = 0
         self._delta = None  # kernel launches one replay makes
+        self._windowed = 0  # windowed flash launches one replay makes
+        self._counts: dict[str, int] = {}  # tracing counts one replay makes
         if self.cuda:
             self._staging = [[torch.empty(s, dtype=d, pin_memory=True) for s, d in
                               zip(shapes, dtypes)] for _ in range(STAGING_SLOTS)]
@@ -175,17 +206,24 @@ class Program:
         event.record(stream)
         self._staged[slot] = event
 
-    def launch(self, *host) -> tuple[list[torch.Tensor], torch.cuda.Event | None, tuple | None]:
+    def launch(self, *host, to_host: bool = True
+               ) -> tuple[list[torch.Tensor], torch.cuda.Event | None, tuple | None]:
         """Fill the inputs from ``host`` and run the program -> (output
         tensors this launch owns, the event after which they are readable,
         or None on the CPU, and while tracing records the (start, end)
-        timing events around a replay, else None)."""
+        timing events around a replay, else None). With ``to_host`` False
+        the outputs stay on the device and the event is None: the caller's
+        stream reads them, and they hold until the next launch of this
+        program."""
         with tracing.span("program_launch"), self.lock, torch.no_grad():
+            self.launches += 1
             if not self.cuda:
                 with tracing.span("copy_in"):
                     self._copy_in(None, host)
                 with tracing.span("replay"):
                     outs = self.fn(*self.inputs)
+                if not to_host:
+                    return list(outs), None, None
                 with tracing.span("copy_out"):
                     return [o.clone() for o in outs], None, None
             capture_stream, replay_stream = _device_streams(self.device)
@@ -210,9 +248,18 @@ class Program:
                         if timing is not None:
                             timing[1].record(replay_stream)
                         _add_launches(self._delta)
+                        _add_window_launches(self._windowed)
+                        for name, n in self._counts.items():
+                            tracing.count(name, n)
                         self.replays += 1
                 tracing.count("program_replays")
                 outs, stream = self.outputs, replay_stream
+            if not to_host:
+                caller.wait_stream(stream)
+                if stream is capture_stream:  # the warm-up's own outputs
+                    for o in outs:
+                        o.record_stream(caller)
+                return list(outs), None, timing
             with tracing.span("copy_out"):
                 with torch.cuda.stream(stream):
                     host_outs = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
@@ -236,13 +283,16 @@ class Program:
             torch.cuda.synchronize(self.device)
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved(self.device)
-            before = _launch_counts()
+            before, windowed = _launch_counts(), _window_launches()
             graph = torch.cuda.CUDAGraph()
-            with capture(graph, stream):
+            with capture(graph, stream), tracing.diverted() as counts:
                 self.outputs = list(self.fn(*self.inputs))
             after = _launch_counts()
             self._delta = [{v: a[v] - b[v] for v in a} for a, b in zip(after, before)]
+            self._windowed = _window_launches() - windowed
+            self._counts = counts
             _add_launches(self._delta, -1)  # the capture ran nothing
+            _add_window_launches(-self._windowed)
             self.graph = graph
             self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
             self.capture_s = time.perf_counter() - t0

@@ -48,7 +48,7 @@ from typing import Callable, Sequence
 import torch
 
 from colbert_torch.retrieval.program import (Program, _capture_lock, _device_streams, capture,
-                                             tensor_signature)
+                                             input_dtype, tensor_signature)
 
 __all__ = ["StepProgram", "TRAIN_PROGRAMS", "input_dtype", "step_key", "step_route"]
 
@@ -104,13 +104,6 @@ def step_key(host: dict, optimizer: torch.optim.Optimizer, *, objective: str,
     shapes = tuple((k, tuple(v.shape), str(v.dtype)) for k, v in host.items())
     return (shapes, objective, dtype_name, max_grad_norm, flags, hyper,
             tensor_signature(params), tensor_signature(state))
-
-
-def input_dtype(array) -> torch.dtype:
-    """The device dtype of a host batch array: int32 token ids widen to
-    int64, as ``ColBERTEncoder._put_batch`` widens them."""
-    dtype = torch.as_tensor(array[:0]).dtype
-    return torch.int64 if dtype == torch.int32 else dtype
 
 
 class StepProgram(Program):

@@ -19,6 +19,11 @@ Otherwise a span site costs one check and returns a shared no-op context
 and a count site costs the same check. Recording never changes a route:
 a captured serving program is replayed whether it is on or off.
 
+Inside :func:`diverted` (a CUDA graph capture, which runs nothing) the
+calling thread's spans record nothing and its counts go into the block's
+own dict, whether or not anything records: the captured program adds
+them back on each replay (:mod:`colbert_torch.retrieval.program`).
+
 A :class:`Span` holds its name, start and end in integer nanoseconds on
 the clock of the profiler's events (``kineto_results.events()``'s
 ``start_ns()``: Unix-epoch nanoseconds, ``time.time_ns()``'s; a recorder
@@ -53,7 +58,7 @@ import torch
 from torch.autograd import _profiler_enabled
 
 __all__ = ["NEW", "Recorder", "Span", "Tracer", "active", "count", "device_phase",
-           "profile_trace", "recording", "span", "take"]
+           "diverted", "profile_trace", "recording", "span", "take"]
 
 # ``span(..., request=NEW)`` draws a fresh request id
 NEW = -1
@@ -155,6 +160,8 @@ _requests = itertools.count(1)
 _local = threading.local()
 _active: Recorder | None = None  # an operator's recording()
 _profiled = Recorder()  # spans recorded under torch.profiler
+_diverting = 0  # threads inside diverted() now
+_diverting_lock = threading.Lock()
 
 
 def _open_spans() -> list:
@@ -164,26 +171,53 @@ def _open_spans() -> list:
     return stack
 
 
+def _diverted_counts() -> dict | None:
+    """The calling thread's :func:`diverted` dict, or None."""
+    return getattr(_local, "diverted", None) if _diverting else None
+
+
 def active() -> bool:
-    """Whether span and count sites record on this thread now (guards a
-    count whose value costs work to compute)."""
-    return _active is not None or _profiler_enabled()
+    """Whether count sites record on this thread now (guards a count whose
+    value costs work to compute)."""
+    return _active is not None or _profiler_enabled() or _diverted_counts() is not None
 
 
 def span(name: str, request: int | None = None):
     """A context that records the span ``name`` while recording is on (a
-    shared no-op otherwise); ``request``: ``NEW``, an id, or None to
-    inherit the parent's. The context's ``request`` is the span's id
-    (None when nothing records)."""
-    if _active is None and not _profiler_enabled():
+    shared no-op otherwise, and inside :func:`diverted`); ``request``:
+    ``NEW``, an id, or None to inherit the parent's. The context's
+    ``request`` is the span's id (None when nothing records)."""
+    if _active is None and not _profiler_enabled() or _diverted_counts() is not None:
         return _NO_SPAN
     return Span(_active or _profiled, name, request)
 
 
 def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to the counter ``name`` while recording is on."""
-    if _active is not None or _profiler_enabled():
+    """Add ``n`` to the counter ``name`` while recording is on (to the
+    :func:`diverted` dict inside one)."""
+    diverted_to = _diverted_counts()
+    if diverted_to is not None:
+        diverted_to[name] = diverted_to.get(name, 0) + n
+    elif _active is not None or _profiler_enabled():
         (_active or _profiled)._count(name, n)
+
+
+@contextlib.contextmanager
+def diverted() -> Iterator[dict]:
+    """For the block, on the calling thread: spans record nothing and every
+    count goes into the yielded dict (name -> total), recording or not."""
+    global _diverting
+    prev = getattr(_local, "diverted", None)
+    counts: dict[str, int] = {}
+    _local.diverted = counts
+    with _diverting_lock:
+        _diverting += 1
+    try:
+        yield counts
+    finally:
+        _local.diverted = prev
+        with _diverting_lock:
+            _diverting -= 1
 
 
 @contextlib.contextmanager

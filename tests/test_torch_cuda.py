@@ -42,8 +42,13 @@ raises; and the captured training step: four fp32 steps graphed against
 the same optimizer's eager steps (loss 1e-5 relative, gradients 1e-4 x
 their max, parameters 1e-2 x lr, the lr the schedule's), the bf16 step and
 its replays under ``set_sync_debug_mode("error")``, a failed capture that
-raises, and a non-capturable optimizer refused. Every test skips without a
-GPU. This file imports no JAX; on a machine without JAX run it as
+raises, and a non-capturable optimizer refused; and the captured doc
+encode: each of the three doc encodes through its replayed programs bit for
+bit its op-by-op route, a build's chunks through the programs bit for bit
+the same chunks encoded op by op against the build's own codec, a replay
+under ``set_sync_debug_mode("error")``, and a flash-routed 64 x 512 batch
+replayed to the eager result with the same flash launch count. Every test
+skips without a GPU. This file imports no JAX; on a machine without JAX run it as
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
@@ -1179,3 +1184,201 @@ def test_a_non_capturable_optimizer_is_refused_on_the_card(cuda_device):
     losses = [trainer.train_step(t)["loss"] for t in batches]
     assert np.isfinite(losses).all()
     assert trainer.programs.programs()[0].replays == 2
+
+
+# --- the captured doc encode ------------------------------------------------
+
+
+def _doc_encoder(device, *, layers=2, **kw):
+    """A bert-base-wide encoder of ``layers`` layers over the tiny
+    vocabulary, full batches of 64 (bf16 activations, bf16 transfer)."""
+    from colbert_torch.config import ColBERTConfig
+    from colbert_torch.models.bert import BertConfig
+    from colbert_torch.utils.testing import make_encoder, make_vocab
+
+    cfg = dict(dim=128, nbits=2, doc_maxlen=128, index_bsize=64, length_bucket=32,
+               kmeans_niters=4)
+    cfg.update(kw)
+    return make_encoder(dim=128, config=ColBERTConfig(**cfg),
+                        bert_config=BertConfig(vocab_size=len(make_vocab()),
+                                               num_hidden_layers=layers), device=device)
+
+
+def _bytes_of(out) -> list:
+    """Every array of a doc encode's result, as (dtype, shape, bytes)."""
+    if isinstance(out, torch.Tensor):
+        t = out.cpu()
+        t = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+        return [(str(out.dtype), tuple(t.shape), t.numpy().tobytes())]
+    if isinstance(out, (tuple, list)):
+        return [b for o in out for b in _bytes_of(o)]
+    a = np.asarray(out)
+    return [(str(a.dtype), a.shape, a.tobytes())]
+
+
+def _doc_encodes(enc, passages, cent, cutoffs):
+    return {
+        "encode_passages": enc.encode_passages(passages),
+        "encode_passages_compressed": enc.encode_passages_compressed(passages, cent, cutoffs,
+                                                                     nbits=2),
+        "encode_passages_to_device": enc.encode_passages_to_device(passages,
+                                                                   return_layout=True),
+    }
+
+
+def _codec_of(enc, passages, device, k=256):
+    """Unit centroids near the collection's embeddings and quartile cutoffs."""
+    flat, _ = enc.encode_passages(passages)
+    cent = flat[:: max(1, len(flat) // k)][:k]
+    cent = cent / np.linalg.norm(cent, axis=1, keepdims=True)
+    codes = np.argmax(flat @ cent.T, axis=1)
+    cutoffs = np.quantile(flat - cent[codes], [0.25, 0.5, 0.75]).astype(np.float32)
+    return torch.from_numpy(cent.astype(np.float32)).to(device), torch.from_numpy(cutoffs).to(device)
+
+
+@pytest.mark.cuda
+def test_replayed_doc_encodes_equal_the_eager_route(cuda_device, monkeypatch):
+    """600 passages (nine full batches of 64, a partial one of 24): each
+    doc encode's second pass, every full batch a replay, gives the same
+    bytes as every batch op by op (``MAX_GRAPH_TOKENS`` 0): the same
+    kernels on the same inputs, cuBLAS keeping its algorithm under
+    capture."""
+    from colbert_torch.models import encoder as enc_mod
+    from colbert_torch.utils import tracing
+    from colbert_torch.utils.testing import synthetic_collection
+
+    enc = _doc_encoder(cuda_device)
+    passages = synthetic_collection(600, seed=7, words_per_doc=60)
+    cent, cutoffs = _codec_of(enc, passages, cuda_device)
+    _doc_encodes(enc, passages, cent, cutoffs)  # the keys' warm-ups and captures
+    with tracing.recording() as rec:
+        got = _doc_encodes(enc, passages, cent, cutoffs)
+    torch.cuda.synchronize()
+    c = rec.counters
+    assert "doc_captures" not in c and c["doc_replays"] == 3 * 9
+    assert c["doc_eager_batches"] == 3 and c["doc_batches"] == 3 * 10
+    assert all(p.graph is not None for p in enc.programs.programs())
+    stats = enc.programs.stats()
+    assert stats["held"] == stats["built"] > 0 and stats["pool_bytes"] > 0
+    monkeypatch.setattr(enc_mod, "MAX_GRAPH_TOKENS", 0)
+    want = _doc_encodes(enc, passages, cent, cutoffs)
+    for name in got:
+        assert _bytes_of(got[name]) == _bytes_of(want[name]), name
+
+
+@pytest.mark.cuda
+def test_captured_build_chunks_equal_the_eager_chunks(cuda_device, tmp_path, monkeypatch):
+    """A 3,000-passage ``Indexer.index`` in 3 chunks (the small-collection
+    path off, so the chunks are encoded again after the sample), every full
+    doc batch replayed, then the same index's chunks encoded again op by op
+    against the codec it saved (a resumed build: k-means' atomic sums are
+    not repeatable, so a second codec would differ): doclens, codes,
+    residuals and the IVF are the same bytes."""
+    import os
+    import shutil
+
+    from colbert_torch.indexing import builder
+    from colbert_torch.indexing.builder import Indexer
+    from colbert_torch.models import encoder as enc_mod
+    from colbert_torch.storage import format as fmt
+    from colbert_torch.utils import tracing
+    from colbert_torch.utils.testing import synthetic_collection
+
+    monkeypatch.setattr(builder, "FAST_PATH_MAX_ROWS", 0)
+    enc = _doc_encoder(cuda_device, chunksize=1000)
+    passages = synthetic_collection(3000, seed=8, words_per_doc=60)
+    captured, eager = str(tmp_path / "captured"), str(tmp_path / "eager")
+    with tracing.recording() as rec:
+        Indexer(enc.config, encoder=enc, collection=passages, device=cuda_device).index(captured)
+    c = rec.counters
+    assert c["doc_replays"] + c["doc_eager_batches"] == c["doc_batches"]
+    assert c["doc_replays"] >= 0.8 * c["doc_batches"]
+    plan = fmt.load_plan(captured)
+    assert plan["num_chunks"] == 3
+    shutil.copytree(captured, eager)
+    for i in range(plan["num_chunks"]):
+        for name in (f"{i}.codes.npy", f"{i}.residuals.npy", f"doclens.{i}.npy",
+                     f"{i}.metadata.json"):
+            os.remove(os.path.join(eager, name))
+    for name in ("ivf.npy", "ivf_lengths.npy"):
+        os.remove(os.path.join(eager, name))
+    monkeypatch.setattr(enc_mod, "MAX_GRAPH_TOKENS", 0)
+    with tracing.recording() as rec:
+        Indexer(enc.config, encoder=enc, collection=passages, device=cuda_device).index(eager)
+    assert "doc_replays" not in rec.counters and "sample_encode" not in {
+        s.name for s in rec.spans}
+    for i in range(plan["num_chunks"]):
+        a, b = fmt.load_chunk(captured, i), fmt.load_chunk(eager, i)
+        for key in ("codes", "residuals", "doclens"):
+            assert np.asarray(a[key]).tobytes() == np.asarray(b[key]).tobytes(), (i, key)
+    for x, y in zip(fmt.load_ivf(captured), fmt.load_ivf(eager)):
+        np.testing.assert_array_equal(x, y)
+    codes = fmt.load_all_codes(captured)
+    np.testing.assert_array_equal(fmt.load_ivf(captured)[0], np.argsort(codes, kind="stable"))
+
+
+@pytest.mark.cuda
+def test_a_doc_replay_makes_no_host_synchronization(cuda_device):
+    """After a key's capture, its launches (copy-in from pinned staging,
+    replay, and the copy-out or the device outputs) pass under
+    ``torch.cuda.set_sync_debug_mode("error")``, and read back the eager
+    warm-up's bytes."""
+    from colbert_torch.models.encoder import _take_rows
+    from colbert_torch.utils.testing import synthetic_collection
+
+    enc = _doc_encoder(cuda_device)
+    passages = synthetic_collection(64, seed=9, words_per_doc=60)
+    ((_, ids, mask, keep),) = list(enc._doc_batches(passages))
+    take, _ = _take_rows(keep)
+    sig = enc._doc_signature()
+    kw = dict(dtype_name="bfloat16", use_flash=False)
+    host = (ids, mask, keep, take)
+    with torch.no_grad():
+        first, ready = enc._replay("encode_compact_batch", sig, host, to_host=True,
+                                   out_dtype_name="bfloat16", **kw)
+        ready.synchronize()
+        want = first[0].clone()
+        dev, _ = enc._replay("forward_compact", sig, host, to_host=False, **kw)
+        want_dev = dev[0].clone()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs, ready = enc._replay("encode_compact_batch", sig, host, to_host=True,
+                                      out_dtype_name="bfloat16", **kw)
+            dev, none = enc._replay("forward_compact", sig, host, to_host=False, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert none is None
+    ready.synchronize()
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], want) and torch.equal(dev[0], want_dev)
+    assert [p.replays for p in enc.programs.programs()] == [1, 1]
+
+
+@pytest.mark.cuda
+def test_a_flash_routed_batch_replays_to_the_eager_result(cuda_device, monkeypatch):
+    """Two full batches of 64 x 512 through the flash kernel (bf16, hd 64,
+    ``flash_min_seqlen`` 512): the captured route (the first batch its
+    warm-up and capture, the second a replay) gives the eager route's bytes
+    and counts the same ``mma`` launches, one per layer and batch."""
+    from colbert_torch.models import encoder as enc_mod
+    from colbert_torch.utils.testing import synthetic_collection
+
+    enc = _doc_encoder(cuda_device, doc_maxlen=512, use_pallas=True, flash_min_seqlen=512,
+                       length_bucket=128)
+    passages = synthetic_collection(128, seed=10, words_per_doc=1400)
+    assert [ids.shape for _, ids, _, _ in enc._doc_batches(passages)] == [(64, 512)] * 2
+    launches = {}
+    outs = {}
+    for route in ("captured", "eager"):
+        if route == "eager":
+            monkeypatch.setattr(enc_mod, "MAX_GRAPH_TOKENS", 0)
+        before = dict(fa.flash_attention.variant_launches)
+        outs[route] = enc.encode_passages(passages)
+        torch.cuda.synchronize()
+        launches[route] = {v: fa.flash_attention.variant_launches[v] - before[v]
+                           for v in before}
+    assert launches["captured"] == launches["eager"] == {"mma": 2 * 2, "simt": 0}
+    (prog,) = enc.programs.programs()
+    assert prog.graph is not None and prog.replays == 1
+    assert _bytes_of(outs["captured"]) == _bytes_of(outs["eager"])

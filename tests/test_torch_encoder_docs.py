@@ -5,7 +5,17 @@ doclens, and the compressed outputs (fused encode+compress, and the
 device-resident sample compressed afterwards) with codes identical except
 on rows whose two best centroid scores lie within 1e-5 (where fp32 rounding
 of the forward may pick either) and residual bytes identical wherever the
-codes agree."""
+codes agree.
+
+The doc programs (run eagerly on their static buffers on the CPU): each of
+the three doc encodes through them is the op-by-op route bit for bit, on a
+collection of full batches, one that mixes full and partial batches, and
+one with full batches over the token limit; the counters add up
+(``doc_replays + doc_eager_batches == doc_batches``); a codebook of
+another size reuses the programs; a re-bound parameter gives new keys; a
+mesh-attached encoder makes none."""
+
+import copy
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +26,7 @@ from colbert_tpu.config import ColBERTConfig as JConfig
 from colbert_tpu.models import encoder as jenc_mod
 from colbert_tpu.utils.testing import make_encoder, synthetic_collection
 from colbert_torch.models import encoder as tenc_mod
+from colbert_torch.utils import tracing
 
 from _torch_parity import port_encoder
 
@@ -131,3 +142,131 @@ def test_flash_gate_stays_off_on_the_cpu(encoders):
     meshed.attach_mesh(make_mesh(2, 1, device="cpu"))
     assert meshed.mesh.shape == {"data": 2, "model": 1}
     assert not meshed._flash_capable and not meshed._flash_for(512)
+
+
+# --- the doc programs -------------------------------------------------------
+
+ENCODES = {
+    "encode_passages": lambda enc, p, cent, cut: enc.encode_passages(p),
+    "encode_passages_compressed": lambda enc, p, cent, cut: enc.encode_passages_compressed(
+        p, torch.from_numpy(cent), torch.from_numpy(cut), nbits=2),
+    "encode_passages_to_device": lambda enc, p, cent, cut: enc.encode_passages_to_device(
+        p, return_layout=True),
+}
+
+
+def _fresh(tenc, model=None):
+    """An encoder over ``tenc``'s model (or ``model``), with no programs."""
+    return tenc_mod.ColBERTEncoder(model or tenc.model, tenc.tokenizer, tenc.config,
+                                   device="cpu")
+
+
+def _leaves(out) -> list:
+    """Every array of an encode's result (tensors as numpy, the sample's
+    layout flattened) in order."""
+    if isinstance(out, torch.Tensor):
+        return [out.view(torch.int16).numpy() if out.dtype == torch.bfloat16 else out.numpy()]
+    if isinstance(out, (tuple, list)):
+        return [leaf for o in out for leaf in _leaves(o)]
+    return [np.asarray(out)]
+
+
+def _assert_bitwise(got, want):
+    got, want = _leaves(got), _leaves(want)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert g.tobytes() == w.tobytes()
+
+
+def _counted(fn):
+    with tracing.recording() as rec:
+        out = fn()
+    return out, dict(rec.counters)
+
+
+@pytest.mark.parametrize("collection", ["full", "mixed", "over_limit"])
+@pytest.mark.parametrize("encode", list(ENCODES))
+def test_doc_programs_are_the_eager_route_bit_for_bit(encoders, codec, monkeypatch,
+                                                      encode, collection):
+    """Through the programs, then with every batch op by op
+    (``MAX_GRAPH_TOKENS`` 0): the same bytes. ``full``: 40 passages in full
+    batches of 8; ``mixed``: 37, each group of 16 ending in a partial
+    batch; ``over_limit``: the limit at 8 x 32 tokens, so the full batches
+    padded past 32 run op by op."""
+    _, tenc, passages = encoders
+    _, cent, cutoffs = codec
+    enc = _fresh(tenc)
+    bsize = enc.config.index_bsize
+    if collection == "mixed":
+        passages = passages[:37]
+    if collection == "over_limit":
+        monkeypatch.setattr(tenc_mod, "MAX_GRAPH_TOKENS", bsize * 32)
+    batches = [ids.shape for _, ids, _, _ in enc._doc_batches(passages)]
+    graphed = [b == bsize and b * L <= tenc_mod.MAX_GRAPH_TOKENS for b, L in batches]
+    run = ENCODES[encode]
+    got, c = _counted(lambda: run(enc, passages, cent, cutoffs))
+    assert c["doc_batches"] == len(batches)
+    assert c.get("doc_replays", 0) + c["doc_eager_batches"] == len(batches)
+    assert c.get("doc_replays", 0) + c["doc_captures"] == sum(graphed) > 0
+    assert c["doc_eager_batches"] - c["doc_captures"] == len(batches) - sum(graphed)
+    assert c["doc_captures"] == len(enc.programs) == enc.programs.built
+    if collection == "full":
+        assert all(graphed)
+    else:
+        assert not all(graphed)
+    monkeypatch.setattr(tenc_mod, "MAX_GRAPH_TOKENS", 0)
+    want, c = _counted(lambda: run(enc, passages, cent, cutoffs))
+    assert c["doc_eager_batches"] == len(batches) and "doc_replays" not in c
+    _assert_bitwise(got, want)
+
+
+def test_a_codebook_of_another_size_reuses_the_programs(encoders, codec):
+    """The codec runs after the replay: a second compressed encode against
+    24 of the centroids replays the first one's programs, captures none,
+    and compresses against its own codebook."""
+    _, tenc, passages = encoders
+    _, cent, cutoffs = codec
+    enc = _fresh(tenc)
+    _, first = _counted(lambda: ENCODES["encode_passages_compressed"](
+        enc, passages, cent, cutoffs))
+    built = enc.programs.built
+    assert first["doc_captures"] == built > 0
+    (codes, _, _), second = _counted(lambda: ENCODES["encode_passages_compressed"](
+        enc, passages, cent[:24], cutoffs))
+    assert "doc_captures" not in second and enc.programs.built == built
+    assert second["doc_replays"] == second["doc_batches"]
+    assert int(codes.max()) < 24
+
+
+def test_a_rebound_parameter_gives_new_keys(encoders):
+    """A parameter replaced by a new tensor (a reload) gives every key
+    anew; the results are the same bytes; in place, the keys stay."""
+    _, tenc, passages = encoders
+    model = copy.deepcopy(tenc.model)
+    enc = _fresh(tenc, model)
+    want, c = _counted(lambda: enc.encode_passages(passages))
+    keys = enc.programs.built
+    assert c["doc_captures"] == keys > 0
+    with torch.no_grad():
+        model.linear.weight.mul_(1.0)
+    _, c = _counted(lambda: enc.encode_passages(passages))
+    assert "doc_captures" not in c and enc.programs.built == keys
+    model.linear.weight = torch.nn.Parameter(model.linear.weight.detach().clone())
+    got, c = _counted(lambda: enc.encode_passages(passages))
+    assert c["doc_captures"] == keys and enc.programs.built == 2 * keys
+    _assert_bitwise(got, want)
+
+
+def test_a_mesh_attached_encoder_makes_no_program(encoders):
+    """Under a mesh every doc batch runs op by op, through the shards."""
+    from colbert_torch.parallel.mesh import make_mesh
+
+    _, tenc, passages = encoders
+    enc = _fresh(tenc)
+    enc.attach_mesh(make_mesh(2, 1, device="cpu"))
+    for encode in ("encode_passages", "encode_passages_to_device"):
+        _, c = _counted(lambda: ENCODES[encode](enc, passages, None, None))
+        assert c["doc_eager_batches"] == c["doc_batches"] > 0
+        assert "doc_replays" not in c and "doc_captures" not in c
+    assert len(enc.programs) == 0 and enc.programs.built == 0

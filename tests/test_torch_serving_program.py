@@ -374,3 +374,28 @@ def test_recording_keeps_the_program_route(ref, monkeypatch):
         t.search_tokens_batch_async(enc, ids, mask, **SEARCH)
     tracing.take()
     assert routes == ["_program_search_Q", "_program_search_tokens"] * 2
+
+
+def test_a_cpu_launch_can_keep_its_outputs_on_the_device():
+    """On the CPU a launch runs the function on its static buffers:
+    ``to_host`` gives the launch its own copies, ``to_host=False`` the
+    function's outputs themselves; both count the launch, neither a
+    replay."""
+    seen = []
+
+    def fn(x, y):
+        out = x * 2 + y
+        seen.append(out)
+        return (out,)
+
+    prog = tprog.Program(fn, [(3,), (3,)], [torch.float32, torch.float32], torch.device("cpu"))
+    (a,), ready, timing = prog.launch(np.ones(3, np.float32), np.arange(3, dtype=np.float32))
+    assert ready is None and timing is None and a is not seen[-1]
+    np.testing.assert_array_equal(a.numpy(), [2.0, 3.0, 4.0])
+    (b,), ready, _ = prog.launch(np.zeros(3, np.float32), np.ones(3, np.float32),
+                                 to_host=False)
+    assert ready is None and b is seen[-1]
+    np.testing.assert_array_equal(b.numpy(), [1.0, 1.0, 1.0])
+    assert prog.launches == 2 and prog.replays == 0 and prog.graph is None
+    assert tprog.input_dtype(np.zeros((2, 2), np.int32)) == torch.int64
+    assert tprog.input_dtype(np.zeros((2, 2), bool)) == torch.bool

@@ -138,19 +138,30 @@ def test_each_batch_and_each_build_draws_its_own_request(built, searcher, tmp_pa
 
 def test_build_counters(built, tmp_path):
     """``doc_tokens`` and ``doc_slots`` count the mask's ones and B x L of
-    every encoded batch; ``kmeans_iters`` the iterations run."""
+    every encoded batch; each batch is a replay of its key's program (the
+    full ones; a key's first batch counts as a capture) or an eager one (the
+    group's last, partial batch); ``kmeans_iters`` the iterations run."""
     enc, passages, _ = built
     with tracing.recording() as rec:
         enc.encode_passages_compressed(passages[:20], torch.zeros((8, 32)),
                                        torch.zeros((3,)), nbits=2)
-    tokens = slots = batches = 0
+    tokens = slots = batches = full = 0
     for _, ids, mask, _ in enc._doc_batches(passages[:20]):
         tokens, slots, batches = tokens + int(mask.sum()), slots + mask.size, batches + 1
-    assert rec.counters == {"doc_batches": batches, "doc_tokens": tokens, "doc_slots": slots}
+        full += ids.shape[0] == CFG["index_bsize"]
+    c = dict(rec.counters)
+    replays, eager, captures = (c.pop(k, 0) for k in
+                                ("doc_replays", "doc_eager_batches", "doc_captures"))
+    assert c == {"doc_batches": batches, "doc_tokens": tokens, "doc_slots": slots}
+    assert 0 < full < batches and replays + eager == batches
+    assert replays + captures == full and eager == batches - full + captures
     assert {s.name for s in rec.spans} == {"doc_tokenize", "doc_tensorize", "doc_dispatch",
-                                           "h2d", "forward", "doc_drain", "doc_scatter"}
+                                           "h2d", "forward", "doc_drain", "doc_scatter",
+                                           "program_launch", "copy_in", "replay"}
     assert all(rec.spans[s.parent].name == "doc_dispatch" for s in rec.spans
                if s.name in ("h2d", "forward"))
+    assert all(rec.spans[s.parent].name == "forward" for s in rec.spans
+               if s.name == "program_launch")
     with tracing.recording() as rec:
         Indexer(enc.config, encoder=enc, collection=passages[:40],
                 device="cpu").index(str(tmp_path / "idx"))
@@ -166,6 +177,36 @@ def test_the_buffer_is_bounded_and_counts_drops():
     assert [s.name for s in rec.spans] == ["outer", "inner", "outer"]
     assert rec.dropped == 7
     assert rec.spans[1].parent == 0 and rec.spans[2].parent == -1
+
+
+def test_diverted_counts_stay_on_their_thread():
+    """Inside ``diverted`` the calling thread's counts go to the block's
+    dict, recording or not, and its spans record nothing; another thread
+    still records; after the block counting is as before."""
+    seen = {}
+
+    def other():
+        with tracing.span("worker"):
+            tracing.count("elsewhere")
+        seen["done"] = True
+
+    with tracing.recording() as rec:
+        with tracing.diverted() as counts:
+            assert tracing.active()
+            with tracing.span("hidden") as s:
+                tracing.count("inside", 2)
+                tracing.count("inside")
+            t = threading.Thread(target=other)
+            t.start()
+            t.join(timeout=30)
+        tracing.count("after")
+    assert s.request is None and seen["done"]
+    assert counts == {"inside": 3}
+    assert rec.counters == {"elsewhere": 1, "after": 1}
+    assert [sp.name for sp in rec.spans] == ["worker"]
+    with tracing.diverted() as counts:
+        tracing.count("unrecorded")
+    assert counts == {"unrecorded": 1} and not tracing.active()
 
 
 def test_spans_nest_per_thread_and_record_exceptions():
