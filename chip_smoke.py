@@ -1508,13 +1508,14 @@ def build_path(enc, passages, index_dir: str) -> dict:
 
 
 def profile_build_steps(enc, batch, index_dir: str) -> None:
-    """Profiles of the build's two device-heavy steps: one fused
-    encode+compress batch (B=128, S=512) against the built codec, and one
+    """Profiles of the build's two device-heavy steps: one encode+compress
+    batch (B=128, S=512: the doc step's eager route, its copy-in included,
+    then the codec) against the built codec, and one
     Lloyd pass of the codec trainer at the build's partition count over
     one million sample-like bf16 rows."""
     import torch
 
-    from colbert_torch.models.encoder import _take_rows
+    from colbert_torch.models.colbert import compress_rows
     from colbert_torch.ops import kmeans
     from colbert_torch.storage import format as fmt
 
@@ -1522,14 +1523,12 @@ def profile_build_steps(enc, batch, index_dir: str) -> None:
     cent = torch.from_numpy(codec["centroids"]).to(enc.device)
     cut = torch.from_numpy(codec["bucket_cutoffs"]).to(enc.device)
     _, ids, mask, keep = batch
-    take, _ = _take_rows(keep)
-    args = enc._put_batch(ids, mask, keep, take)
+    embed = enc._doc_step(compact=True)
 
     def encode_compress():
         with torch.no_grad():
-            enc.model.encode_compress_compact_batch(
-                *args[:3], cent, cut, args[3], dtype_name=enc.config.activation_dtype,
-                nbits=enc.config.nbits, use_flash=enc._flash_for(ids.shape[1]))
+            rows, _ = embed(ids, mask, keep)
+            compress_rows(rows, cent, cut, enc.config.nbits)
 
     encode_compress()
     print("[profile] encode+compress batch " + json.dumps(device_profile(encode_compress)))
@@ -2107,19 +2106,19 @@ def multidevice_encodes(model, batch) -> dict:
     kept = torch.from_numpy(keep).to(dev)
     out = {}
     with torch.no_grad():
-        ref16 = one._forward("encode_batch", ids, mask, keep, dtype_name="bfloat16",
-                             use_flash=flash)
-        ref32 = one._forward("encode_batch", ids, mask, keep, dtype_name="float32")
+        ref16 = one.model.encode_batch(*one._put_batch(ids, mask, keep), dtype_name="bfloat16",
+                                       use_flash=flash)
+        ref32 = one.model.encode_batch(*one._put_batch(ids, mask, keep), dtype_name="float32")
         for name, shape in (("dp", (2, 1)), ("tp", (1, 2))):
             enc = ColBERTEncoder(model, one.tokenizer, cfg, device=dev)
             enc.attach_mesh(make_mesh(*shape, devices=mesh_devices(dev, 2)))
             reset_counts()
             t0 = time.perf_counter()
-            e16 = enc._forward("encode_batch", ids, mask, keep, dtype_name="bfloat16",
-                               use_flash=flash)[:len(ids)]
+            e16 = enc._shard_forward(ids, mask, keep, dtype_name="bfloat16",
+                                     use_flash=flash)[:len(ids)]
             dt16 = time.perf_counter() - t0
             f = dict(fa.flash_attention.variant_launches)
-            e32 = enc._forward("encode_batch", ids, mask, keep, dtype_name="float32")[:len(ids)]
+            e32 = enc._shard_forward(ids, mask, keep, dtype_name="float32")[:len(ids)]
             cos = float((e16 * ref16).sum(-1)[kept].min())
             err = float((e32 - ref32).abs()[kept].max())
             print(f"[multidevice] {name} {shape} encode B={len(ids)} S={ids.shape[1]}: bf16 min "
@@ -2986,7 +2985,7 @@ def train_mesh_phase(device, *, bert_cfg, n_passages: int = TRAIN_PASSAGES,
     host = trainer._tensorize(triples[:32])
     ids, mask, keep = host["pos_ids"], host["pos_mask"], host["pos_keep"]
     with torch.no_grad():
-        meshed = enc._forward("encode_batch", ids, mask, keep, dtype_name="bfloat16")[:32]
+        meshed = enc._shard_forward(ids, mask, keep, dtype_name="bfloat16")[:32]
         one = enc.model.encode_batch(*enc._put_batch(ids, mask, keep), dtype_name="bfloat16")
     kept = torch.from_numpy(keep).to(one.device)
     cos = float((meshed * one).sum(-1)[kept].min())

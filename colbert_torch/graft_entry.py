@@ -145,7 +145,7 @@ def dryrun_multichip(n_devices: int, *, device: str | torch.device = "cuda") -> 
         with torch.no_grad():
             ref = enc.model.encode_batch(*enc._put_batch(ids, mask, keep),
                                          dtype_name="float32")
-            out = tp_enc._forward("encode_batch", ids, mask, keep, dtype_name="float32")[:B]
+            out = tp_enc._shard_forward(ids, mask, keep, dtype_name="float32")[:B]
         tp_err = float((out - ref).abs().max())
         _check(tp_err <= 1e-4, f"tensor-parallel encode differs by {tp_err}")
         tp_loss = _dp_tp_train_step(tp_enc, ids, mask, keep, n_devices)

@@ -11,11 +11,8 @@ head bias, zero the positions outside ``keep_mask`` and L2-normalize with
 the norm clamped inside the sqrt. ``encode_batch`` adds the output-dtype
 conversion of the JAX ``encode_batch`` (a float dtype, or ``"int8"`` as
 ``round(x * 127)``). ``use_flash`` routes BERT's attention through the
-flash-attention kernel. The doc-side batches of the build path fuse the
-forward with keep-row compaction (``forward_compact``,
-``encode_compact_batch``) and with the residual codec (``compress_rows``,
-``encode_compress_batch``, ``encode_compress_compact_batch``), so only kept
-rows, or only codes and packed residuals, leave the device.
+flash-attention kernel. ``compress_rows`` is the residual codec the build
+path runs on the doc encode's kept rows.
 ``remat`` (training) recomputes each BERT layer in the backward.
 ``from_jax_params`` and ``to_jax_params`` carry weights between the port and
 the JAX package's pytree.
@@ -93,60 +90,6 @@ class ColBERT(nn.Module):
                                       dtype_name=dtype_name, use_flash=use_flash,
                                       remat=remat)
         return _to_out_dtype(emb, out_dtype_name)
-
-    def forward_compact(
-        self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-        keep_mask: torch.Tensor, take_idx: torch.Tensor, *,
-        dtype_name: str = "bfloat16", use_flash: bool = False,
-    ) -> torch.Tensor:
-        """``forward_normalized`` fused with keep-row compaction -> fp32
-        ``(M, dim)``: ``take_idx`` holds the flat row-major positions of the
-        kept tokens in the ``(B*L)`` grid (padding slots repeat row 0;
-        callers slice to the real count)."""
-        emb = self.forward_normalized(input_ids, attention_mask, keep_mask,
-                                      dtype_name=dtype_name, use_flash=use_flash)
-        return emb.reshape(-1, emb.shape[-1])[take_idx]
-
-    def encode_compact_batch(
-        self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-        keep_mask: torch.Tensor, take_idx: torch.Tensor, *,
-        dtype_name: str = "bfloat16", out_dtype_name: str = "float32",
-        use_flash: bool = False,
-    ) -> torch.Tensor:
-        """``encode_batch`` on the kept rows only (``take_idx`` as in
-        :meth:`forward_compact`) -> ``(M, dim)``."""
-        flat = self.forward_compact(input_ids, attention_mask, keep_mask, take_idx,
-                                    dtype_name=dtype_name, use_flash=use_flash)
-        return _to_out_dtype(flat, out_dtype_name)
-
-    def encode_compress_batch(
-        self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-        keep_mask: torch.Tensor, centroids: torch.Tensor,
-        bucket_cutoffs: torch.Tensor, *, dtype_name: str = "bfloat16",
-        nbits: int = 2, use_flash: bool = False,
-    ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Doc forward + residual compression -> (codes ``(B, L)`` int32,
-        packed residuals ``(B, L, dim // 8 * nbits)`` uint8). Masked
-        positions get codes too; callers drop them by ``keep_mask``."""
-        emb = self.forward_normalized(input_ids, attention_mask, keep_mask,
-                                      dtype_name=dtype_name, use_flash=use_flash)
-        B, L, dim = emb.shape
-        codes, residuals = compress_rows(emb.reshape(B * L, dim), centroids,
-                                         bucket_cutoffs, nbits)
-        return codes.reshape(B, L), residuals.reshape(B, L, -1)
-
-    def encode_compress_compact_batch(
-        self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-        keep_mask: torch.Tensor, centroids: torch.Tensor,
-        bucket_cutoffs: torch.Tensor, take_idx: torch.Tensor, *,
-        dtype_name: str = "bfloat16", nbits: int = 2, use_flash: bool = False,
-    ) -> tuple[torch.Tensor, torch.Tensor]:
-        """``encode_compress_batch`` on the kept rows only (``take_idx`` as
-        in :meth:`forward_compact`) -> (codes ``(M,)``, residuals
-        ``(M, dim // 8 * nbits)``): masked rows skip the codec too."""
-        flat = self.forward_compact(input_ids, attention_mask, keep_mask, take_idx,
-                                    dtype_name=dtype_name, use_flash=use_flash)
-        return compress_rows(flat, centroids, bucket_cutoffs, nbits)
 
 
 def _to_out_dtype(emb: torch.Tensor, out_dtype_name: str) -> torch.Tensor:

@@ -19,21 +19,22 @@ the build path:
     CPU nothing routes there and buckets stay as configured, as in the JAX
     package on its CPU backend. A ModernBERT model sends both its layer
     kinds there, local layers windowed,
-  - with a mesh attached (:meth:`ColBERTEncoder.attach_mesh`) every batch
-    pads to a multiple of the data axis and each data shard encodes its
-    rows on its own device (and, with a model axis above 1, through a
-    tensor-parallel model); doc outputs then leave the device as padded
-    blocks, not compacted rows, and the pad rows are dropped at drain,
-  - with no mesh, a full batch (``index_bsize`` rows) of at most
-    ``MAX_GRAPH_TOKENS`` padded tokens replays one captured program per
-    static key (:mod:`colbert_torch.retrieval.program`: the forward and
-    the compaction, one CUDA graph on a card, the same code run eagerly on
-    its static buffers on the CPU), the encoder's own ``programs``; the
-    codec runs eagerly after the replay, on its device outputs. Every other
-    batch (a group's last, a long one, a mesh's) runs op by op. Counters:
-    ``doc_replays``, ``doc_captures`` (a key's first batch: its warm-up,
-    then on a card its capture, counted with ``doc_eager_batches``) and
-    ``doc_eager_batches``.
+  - one step (``_doc_step``) picks each doc batch's route and gives its
+    embeddings on the encoder's device: with no mesh, a full batch
+    (``index_bsize`` rows) of at most ``MAX_GRAPH_TOKENS`` padded tokens
+    replays one captured program per static key
+    (:mod:`colbert_torch.retrieval.program`: the forward, the compaction
+    and the cast, one CUDA graph on a card, the same code run eagerly on
+    its static buffers on the CPU), the encoder's own ``programs``; with a
+    mesh attached (:meth:`ColBERTEncoder.attach_mesh`) the batch pads to a
+    multiple of the data axis, each data shard encodes its rows on its own
+    device (and, with a model axis above 1, through a tensor-parallel
+    model) and the rows gather on the encoder's device; every other batch
+    (a group's last, a long one) runs op by op. The three doc encodes
+    consume it: the host copy, the codec after it, the sample buffer.
+    Counters: ``doc_replays``, ``doc_captures`` (a key's first batch: its
+    warm-up, then on a card its capture, counted with
+    ``doc_eager_batches``) and ``doc_eager_batches``.
 """
 
 from __future__ import annotations
@@ -45,7 +46,12 @@ import numpy as np
 import torch
 
 from colbert_torch.config import ColBERTConfig
-from colbert_torch.models.colbert import ColBERT, compress_rows, skiplist_keep_mask
+from colbert_torch.models.colbert import (
+    ColBERT,
+    _to_out_dtype,
+    compress_rows,
+    skiplist_keep_mask,
+)
 from colbert_torch.models.modernbert import ModernBertConfig
 from colbert_torch.ops import codec as codec_ops
 from colbert_torch.retrieval.program import Program, ProgramCache, input_dtype, tensor_signature
@@ -107,15 +113,8 @@ def _scatter_compact(out: np.ndarray, dest_offsets: np.ndarray, idx: np.ndarray,
     global flat array: row ``r`` holds passage ``idx[r]``, whose kept
     tokens land at ``dest_offsets[idx[r]] + [0..)`` (reference
     embedding_utils.jl:195-205, with original-order restore)."""
-    counts = keep.sum(axis=1).astype(np.int64)
-    total = int(counts.sum())
-    if total == 0:
-        return
-    starts = np.concatenate([[0], np.cumsum(counts[:-1])])
-    within = np.arange(total, dtype=np.int64) - np.repeat(starts, counts)
-    dest = np.repeat(dest_offsets[idx], counts) + within
-    vals = values[keep]
-    out[dest] = vals if vals.dtype == out.dtype else vals.astype(out.dtype)
+    _scatter_compact_rows(out, dest_offsets, idx, keep.sum(axis=1).astype(np.int64),
+                          values[keep])
 
 
 def _start_host_copy(t: torch.Tensor) -> tuple[torch.Tensor, torch.cuda.Event | None]:
@@ -227,19 +226,13 @@ class ColBERTEncoder:
                 out.append(t.to(device or self.device, non_blocking=True))
         return out
 
-    def _forward(self, method: str, ids: np.ndarray, mask: np.ndarray, keep: np.ndarray,
-                 *extra: torch.Tensor, **kw):
-        """``self.model.<method>(ids, mask, keep, *extra, **kw)`` on one host
-        batch. Under a mesh the rows pad to a multiple of the data axis
-        (pad rows have empty masks), each data shard runs its rows through
-        its own model on its device, and the outputs (a tensor or a tuple)
-        gather on the encoder's device in shard order, pad rows included:
-        callers keep the leading ``ids.shape[0]`` rows. The model's launches
-        are the span ``forward``."""
-        if self.mesh is None:
-            tensors = self._put_batch(ids, mask, keep)
-            with tracing.span("forward"):
-                return getattr(self.model, method)(*tensors, *extra, **kw)
+    def _shard_forward(self, ids: np.ndarray, mask: np.ndarray, keep: np.ndarray,
+                       **kw) -> torch.Tensor:
+        """``forward_normalized`` of one host batch over the mesh: the rows pad
+        to a multiple of the data axis (pad rows have empty masks), each data
+        shard runs its rows through its own model on its device, and the
+        outputs gather on the encoder's device in shard order, pad rows
+        included: callers keep the leading ``ids.shape[0]`` rows."""
         ndev = self.mesh.shape["data"]
         if sorted(self._replicas) != list(range(ndev)):
             raise ValueError("a mesh encode needs every data shard in this process")
@@ -250,53 +243,67 @@ class ColBERTEncoder:
         rows = ids.shape[0] // ndev
         outs = []
         for s, model in self._replicas.items():
-            dev = self.mesh.data_device(s)
             part = [a[s * rows:(s + 1) * rows] for a in (ids, mask, keep)]
-            outs.append(getattr(model, method)(*self._put_batch(*part, device=dev),
-                                               *(e.to(dev) for e in extra), **kw))
-        if isinstance(outs[0], tuple):
-            return tuple(torch.cat([o[i].to(self.device) for o in outs])
-                         for i in range(len(outs[0])))
+            outs.append(model.forward_normalized(
+                *self._put_batch(*part, device=self.mesh.data_device(s)), **kw))
         return torch.cat([o.to(self.device) for o in outs])
 
-    def _captured(self, ids: np.ndarray) -> bool:
-        """Whether a doc batch replays a captured program: a full batch of
-        at most ``MAX_GRAPH_TOKENS`` padded tokens, with no mesh."""
-        B, L = ids.shape
-        return self.mesh is None and B == self.config.index_bsize and B * L <= MAX_GRAPH_TOKENS
+    def _doc_step(self, *, compact: bool, out_dtype_name: str | None = None):
+        """-> ``step(ids, mask, keep) -> (embeddings on the encoder's device,
+        real rows)`` for one doc encode: the one place a doc batch's route is
+        chosen. With ``compact`` a batch gives its kept rows ``(M, dim)``
+        (:func:`_take_rows`: the real ones lead), else its padded block
+        ``(B, L, dim)`` (a mesh's pad rows after the ``B`` real ones); fp32,
+        or cast to ``out_dtype_name``.
 
-    def _doc_signature(self) -> tuple:
-        """What a doc program bakes in about the model: each parameter's
-        address, shape and dtype (a reload or a re-bound parameter gives new
-        keys; an in-place update is read by the next replay)."""
-        return tensor_signature(list(self.model.parameters()))
+        A full batch (``index_bsize`` rows) of at most ``MAX_GRAPH_TOKENS``
+        padded tokens with no mesh replays the program of its key (the route,
+        the arrays' shapes, the dtype, the flash route and the parameters'
+        addresses, shapes and dtypes, taken once per encode: a reload or a
+        re-bound parameter gives new keys, an in-place update is read by the
+        next replay); its outputs stay on the device, read on the caller's
+        stream before the next batch. Under a mesh the data shards run the
+        forward and the encoder's device compacts and casts. Any other batch
+        runs op by op on the encoder's device."""
+        cfg, model = self.config, self.model
+        signature = tensor_signature(list(model.parameters()))
 
-    def _replay(self, method: str, signature: tuple, arrays: Sequence[np.ndarray], *,
-                to_host: bool, **kw) -> tuple[list[torch.Tensor], torch.cuda.Event | None]:
-        """``self.model.<method>(*arrays, **kw)`` on one full doc batch through
-        the program of its key (the method, the arrays' shapes, ``kw`` and the
-        model's ``signature``) -> (outputs, the event after which host outputs
-        are readable, or None). ``to_host``: the outputs arrive in pinned
-        host memory; else they stay on the device, read on the caller's
-        stream before the next batch."""
-        shapes = [a.shape for a in arrays]
-        key = (method, tuple(shapes), tuple(sorted(kw.items())), signature)
-        model = self.model
+        def finish(emb, *take):
+            if take:
+                emb = emb.reshape(-1, emb.shape[-1])[take[0]]
+            return emb if out_dtype_name is None else _to_out_dtype(emb, out_dtype_name)
 
-        def run(*inputs):
-            out = getattr(model, method)(*inputs, **kw)
-            return out if isinstance(out, tuple) else (out,)
+        def step(ids: np.ndarray, mask: np.ndarray, keep: np.ndarray
+                 ) -> tuple[torch.Tensor, int]:
+            B, L = ids.shape
+            kw = dict(dtype_name=cfg.activation_dtype, use_flash=self._flash_for(L))
+            arrays, nrows = [ids, mask, keep], B
+            if compact:
+                take, nrows = _take_rows(keep)
+                arrays.append(take)
+            prog = None
+            if self.mesh is None and B == cfg.index_bsize and B * L <= MAX_GRAPH_TOKENS:
+                key = (compact, out_dtype_name, tuple(a.shape for a in arrays),
+                       tuple(sorted(kw.items())), signature)
+                prog = self.programs.get(key, lambda: Program(
+                    lambda i, m, k, *t: (finish(model.forward_normalized(i, m, k, **kw), *t),),
+                    [a.shape for a in arrays], [input_dtype(a) for a in arrays], self.device))
+                tracing.count("doc_replays" if prog.launches else "doc_captures")
+            if prog is None or not prog.launches:  # a key's first batch runs eagerly
+                tracing.count("doc_eager_batches")
+            if prog is None and self.mesh is None:
+                tensors = self._put_batch(*arrays)
+            with tracing.span("forward"):
+                if prog is not None:
+                    (out,), _, _ = prog.launch(*arrays, to_host=False)
+                elif self.mesh is None:
+                    out = finish(model.forward_normalized(*tensors[:3], **kw), *tensors[3:])
+                else:
+                    out = finish(self._shard_forward(ids, mask, keep, **kw),
+                                 *self._put_batch(*arrays[3:]))
+            return out, nrows
 
-        prog = self.programs.get(key, lambda: Program(
-            run, shapes, [input_dtype(a) for a in arrays], self.device))
-        first = not prog.launches
-        outs, ready, _ = prog.launch(*arrays, to_host=to_host)
-        if first:
-            tracing.count("doc_captures")
-            tracing.count("doc_eager_batches")
-        else:
-            tracing.count("doc_replays")
-        return outs, ready
+        return step
 
     def tokenize_batch(self, texts) -> list[list[int]]:
         """Lists and byte-backed Collections both go to the native tokenizer,
@@ -379,47 +386,36 @@ class ColBERTEncoder:
         drained.extend(drain(p) for p in pending)
         return drained, doclens
 
-    def encode_passages(self, passages: Sequence[str]) -> tuple[np.ndarray, np.ndarray]:
-        """-> (flat embeddings (sum doclens, dim) fp32, doclens (N,) int64) in
-        passage order. Only kept rows leave the device, in
-        ``config.transfer_dtype``; the result is always fp32."""
-        cfg = self.config
-        n = len(passages)
-        if n == 0:
-            return np.zeros((0, self.dim), np.float32), np.zeros((0,), np.int64)
-
-        compact = self.mesh is None  # a mesh ships padded blocks
-        signature = self._doc_signature()
+    def _encode_to_host(self, passages: Sequence[str], outputs, out_dtype_name=None
+                        ) -> tuple[list[np.ndarray], np.ndarray]:
+        """Every doc batch's kept rows (:meth:`_doc_step`), through
+        ``outputs(rows) -> device tensors``, copied to the host and scattered
+        into passage order -> (one flat host array per output, doclens)."""
+        embed = self._doc_step(compact=True, out_dtype_name=out_dtype_name)
 
         def dispatch(idx, ids, mask, keep):
-            kw = dict(dtype_name=cfg.activation_dtype, out_dtype_name=cfg.transfer_dtype,
-                      use_flash=self._flash_for(ids.shape[1]))
-            if self._captured(ids):
-                take, v = _take_rows(keep)
-                with tracing.span("forward"):
-                    outs, ready = self._replay("encode_compact_batch", signature,
-                                               (ids, mask, keep, take), to_host=True, **kw)
-                return [(o, ready) for o in outs], v
-            tracing.count("doc_eager_batches")
-            if not compact:
-                emb = self._forward("encode_batch", ids, mask, keep, **kw)
-                return [_start_host_copy(emb)], len(idx)
-            take, v = _take_rows(keep)
-            ids_d, mask_d, keep_d, take_d = self._put_batch(ids, mask, keep, take)
-            with tracing.span("forward"):
-                emb = self.model.encode_compact_batch(ids_d, mask_d, keep_d, take_d, **kw)
-            return [_start_host_copy(emb)], v
+            rows, nrows = embed(ids, mask, keep)
+            return [_start_host_copy(o) for o in outputs(rows)], nrows
 
         drained, doclens = self._pipeline_batches(passages, dispatch)
         with tracing.span("doc_scatter"):
             dest_offsets = np.concatenate([[0], np.cumsum(doclens[:-1])])
-            flat = np.empty((int(doclens.sum()), self.dim), np.float32)
-            for idx, keep, emb in drained:
-                if compact:
-                    counts = keep.sum(axis=1).astype(np.int64)
-                    _scatter_compact_rows(flat, dest_offsets, idx, counts, emb)
-                else:
-                    _scatter_compact(flat, dest_offsets, idx, keep, emb)
+            total = int(doclens.sum())
+            flats = [np.empty((total, *h.shape[1:]), h.dtype) for h in drained[0][2:]]
+            for idx, keep, *host in drained:
+                counts = keep.sum(axis=1).astype(np.int64)
+                for flat, h in zip(flats, host):
+                    _scatter_compact_rows(flat, dest_offsets, idx, counts, h)
+        return flats, doclens
+
+    def encode_passages(self, passages: Sequence[str]) -> tuple[np.ndarray, np.ndarray]:
+        """-> (flat embeddings (sum doclens, dim) fp32, doclens (N,) int64) in
+        passage order. Only kept rows leave the device, in
+        ``config.transfer_dtype``; the result is always fp32."""
+        if len(passages) == 0:
+            return np.zeros((0, self.dim), np.float32), np.zeros((0,), np.int64)
+        (flat,), doclens = self._encode_to_host(passages, lambda rows: (rows,),
+                                                self.config.transfer_dtype)
         return flat, doclens
 
     @torch.no_grad()
@@ -439,7 +435,6 @@ class ColBERTEncoder:
         weight 0 in k-means, and 0 * NaN would poison the sums."""
         from colbert_torch.indexing.codec_trainer import sample_bucket_step
 
-        cfg = self.config
         n = len(passages)
         if n == 0:
             empty = (torch.zeros((0, self.dim), dtype=torch.bfloat16, device=self.device),
@@ -449,26 +444,18 @@ class ColBERTEncoder:
         ndev = 1 if self.mesh is None else self.mesh.shape["data"]
         total = sum(-(-ids.shape[0] // ndev) * ndev * ids.shape[1]
                     for _, ids, _, _ in batches)
-        step = sample_bucket_step(total)
-        padded = -(-total // step) * step
+        bucket = sample_bucket_step(total)
+        padded = -(-total // bucket) * bucket
 
         doclens = np.zeros((n,), np.int64)
         valid = np.zeros((padded,), bool)
         layout: list[tuple] = []
         buf = torch.zeros((padded, self.dim), dtype=torch.bfloat16, device=self.device)
         offset = 0
-        signature = self._doc_signature()
+        embed = self._doc_step(compact=False)
         for idx, ids, mask, keep in batches:
             with tracing.span("doc_dispatch"):
-                kw = dict(dtype_name=cfg.activation_dtype,
-                          use_flash=self._flash_for(ids.shape[1]))
-                if self._captured(ids):
-                    with tracing.span("forward"):
-                        (emb,), _ = self._replay("encode_batch", signature, (ids, mask, keep),
-                                                 to_host=False, **kw)
-                else:
-                    tracing.count("doc_eager_batches")
-                    emb = self._forward("encode_batch", ids, mask, keep, **kw)
+                emb, _ = embed(ids, mask, keep)
                 B, L, dim = emb.shape  # B counts a mesh's pad rows (valid=False)
                 buf[offset:offset + B * L] = emb.reshape(B * L, dim)
                 valid[offset:offset + len(idx) * L] = keep.reshape(-1)
@@ -508,57 +495,17 @@ class ColBERTEncoder:
         self, passages: Sequence[str], centroids: torch.Tensor,
         bucket_cutoffs: torch.Tensor, *, nbits: int,
     ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Fused encode+compress -> (codes (M,) uint32, packed residuals
+        """Encode+compress -> (codes (M,) uint32, packed residuals
         (M, nbytes) uint8, doclens (N,)) in passage order, on the host. Only
         the kept rows' codes and residuals leave the device."""
-        cfg = self.config
-        n = len(passages)
-        nbytes = self.dim // 8 * nbits
-        if n == 0:
-            return (np.zeros((0,), np.uint32), np.zeros((0, nbytes), np.uint8),
+        if len(passages) == 0:
+            return (np.zeros((0,), np.uint32), np.zeros((0, self.dim // 8 * nbits), np.uint8),
                     np.zeros((0,), np.int64))
-
-        compact = self.mesh is None  # a mesh ships padded blocks
-        signature = self._doc_signature()
-
-        def dispatch(idx, ids, mask, keep):
-            kw = dict(dtype_name=cfg.activation_dtype, use_flash=self._flash_for(ids.shape[1]))
-            if self._captured(ids):
-                take, v = _take_rows(keep)
-                # the codec runs eagerly after the replay, so the codebook's
-                # size is no part of the key
-                with tracing.span("forward"):
-                    (flat,), _ = self._replay("forward_compact", signature,
-                                              (ids, mask, keep, take), to_host=False, **kw)
-                    outs = compress_rows(flat, centroids, bucket_cutoffs, nbits)
-                return [_start_host_copy(o) for o in outs], v
-            tracing.count("doc_eager_batches")
-            if not compact:
-                outs = self._forward("encode_compress_batch", ids, mask, keep, centroids,
-                                     bucket_cutoffs, nbits=nbits, **kw)
-                return [_start_host_copy(o) for o in outs], len(idx)
-            take, v = _take_rows(keep)
-            ids_d, mask_d, keep_d, take_d = self._put_batch(ids, mask, keep, take)
-            with tracing.span("forward"):
-                outs = self.model.encode_compress_compact_batch(
-                    ids_d, mask_d, keep_d, centroids, bucket_cutoffs, take_d, nbits=nbits, **kw)
-            return [_start_host_copy(o) for o in outs], v
-
-        drained, doclens = self._pipeline_batches(passages, dispatch)
-        with tracing.span("doc_scatter"):
-            dest_offsets = np.concatenate([[0], np.cumsum(doclens[:-1])])
-            total = int(doclens.sum())
-            flat_codes = np.empty((total,), np.uint32)
-            flat_res = np.empty((total, nbytes), np.uint8)
-            for idx, keep, codes, res in drained:
-                if compact:
-                    counts = keep.sum(axis=1).astype(np.int64)
-                    _scatter_compact_rows(flat_codes, dest_offsets, idx, counts, codes)
-                    _scatter_compact_rows(flat_res, dest_offsets, idx, counts, res)
-                else:
-                    _scatter_compact(flat_codes, dest_offsets, idx, keep, codes)
-                    _scatter_compact(flat_res, dest_offsets, idx, keep, res)
-        return flat_codes, flat_res, doclens
+        # the codec runs after the step, so the codebook's size is no part of
+        # a program's key
+        (codes, residuals), doclens = self._encode_to_host(
+            passages, lambda rows: compress_rows(rows, centroids, bucket_cutoffs, nbits))
+        return codes, residuals, doclens
 
     # -- queries -------------------------------------------------------------
 
@@ -587,9 +534,13 @@ class ColBERTEncoder:
         batch splits over the data shards and the pad rows are dropped."""
         ids = np.asarray(ids, np.int64)
         mask = np.asarray(mask)
-        Q = self._forward("forward_normalized", ids, mask, np.ones_like(mask),
-                          dtype_name=self.config.activation_dtype)
-        return Q[:ids.shape[0]]
+        keep = np.ones_like(mask)
+        kw = dict(dtype_name=self.config.activation_dtype)
+        if self.mesh is not None:
+            return self._shard_forward(ids, mask, keep, **kw)[:ids.shape[0]]
+        tensors = self._put_batch(ids, mask, keep)
+        with tracing.span("forward"):
+            return self.model.forward_normalized(*tensors, **kw)
 
     def encode_query_device(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """Token ids and mask already on the encoder's device -> ``(N, L,

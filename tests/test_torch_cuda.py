@@ -752,14 +752,14 @@ def test_tensor_parallel_encode_on_the_card(cuda_device):
     keep = mask.copy()
     with torch.no_grad():
         before = dict(fa.flash_attention.variant_launches)
-        a = tp._forward("encode_batch", ids, mask, keep, dtype_name="bfloat16", use_flash=True)
+        a = tp._shard_forward(ids, mask, keep, dtype_name="bfloat16", use_flash=True)
         assert fa.flash_attention.variant_launches["mma"] == before["mma"] + 2 * 2
-        b = one._forward("encode_batch", ids, mask, keep, dtype_name="bfloat16",
-                         use_flash=True)
+        b = one.model.encode_batch(*one._put_batch(ids, mask, keep), dtype_name="bfloat16",
+                                   use_flash=True)
         k = torch.from_numpy(keep).to(cuda_device)
         assert float((a * b).sum(-1)[k].min()) >= 0.999
-        a32 = tp._forward("encode_batch", ids, mask, keep, dtype_name="float32")
-        b32 = one._forward("encode_batch", ids, mask, keep, dtype_name="float32")
+        a32 = tp._shard_forward(ids, mask, keep, dtype_name="float32")
+        b32 = one.model.encode_batch(*one._put_batch(ids, mask, keep), dtype_name="float32")
         assert float((a32 - b32).abs()[k].max()) <= 1e-4
 
 
@@ -1319,39 +1319,36 @@ def test_captured_build_chunks_equal_the_eager_chunks(cuda_device, tmp_path, mon
 
 @pytest.mark.cuda
 def test_a_doc_replay_makes_no_host_synchronization(cuda_device):
-    """After a key's capture, its launches (copy-in from pinned staging,
-    replay, and the copy-out or the device outputs) pass under
-    ``torch.cuda.set_sync_debug_mode("error")``, and read back the eager
-    warm-up's bytes."""
-    from colbert_torch.models.encoder import _take_rows
+    """After a key's capture, a doc batch's step (copy-in from pinned
+    staging, replay, device outputs) and the host copy an encode starts from
+    them pass under ``torch.cuda.set_sync_debug_mode("error")``, and read
+    back the eager warm-up's bytes: the bf16 rows of ``encode_passages``
+    and the fp32 rows the codec reads."""
+    from colbert_torch.models.encoder import _start_host_copy
     from colbert_torch.utils.testing import synthetic_collection
 
     enc = _doc_encoder(cuda_device)
+    assert enc.config.activation_dtype == "bfloat16" and not enc._flash_for(128)
     passages = synthetic_collection(64, seed=9, words_per_doc=60)
     ((_, ids, mask, keep),) = list(enc._doc_batches(passages))
-    take, _ = _take_rows(keep)
-    sig = enc._doc_signature()
-    kw = dict(dtype_name="bfloat16", use_flash=False)
-    host = (ids, mask, keep, take)
+    cast = enc._doc_step(compact=True, out_dtype_name="bfloat16")
+    rows = enc._doc_step(compact=True)
     with torch.no_grad():
-        first, ready = enc._replay("encode_compact_batch", sig, host, to_host=True,
-                                   out_dtype_name="bfloat16", **kw)
+        first, ready = _start_host_copy(cast(ids, mask, keep)[0])
         ready.synchronize()
-        want = first[0].clone()
-        dev, _ = enc._replay("forward_compact", sig, host, to_host=False, **kw)
-        want_dev = dev[0].clone()
+        want = first.clone()
+        dev, _ = rows(ids, mask, keep)
+        want_dev = dev.clone()
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            outs, ready = enc._replay("encode_compact_batch", sig, host, to_host=True,
-                                      out_dtype_name="bfloat16", **kw)
-            dev, none = enc._replay("forward_compact", sig, host, to_host=False, **kw)
+            out, ready = _start_host_copy(cast(ids, mask, keep)[0])
+            dev, _ = rows(ids, mask, keep)
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    assert none is None
     ready.synchronize()
     torch.cuda.synchronize()
-    assert torch.equal(outs[0], want) and torch.equal(dev[0], want_dev)
+    assert torch.equal(out, want) and torch.equal(dev, want_dev)
     assert [p.replays for p in enc.programs.programs()] == [1, 1]
 
 

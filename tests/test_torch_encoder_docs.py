@@ -13,7 +13,8 @@ collection of full batches, one that mixes full and partial batches, and
 one with full batches over the token limit; the counters add up
 (``doc_replays + doc_eager_batches == doc_batches``); a codebook of
 another size reuses the programs; a re-bound parameter gives new keys; a
-mesh-attached encoder makes none."""
+mesh-attached encoder makes none, and its three encodes give the
+single-device encoder's results."""
 
 import copy
 
@@ -270,3 +271,56 @@ def test_a_mesh_attached_encoder_makes_no_program(encoders):
         assert c["doc_eager_batches"] == c["doc_batches"] > 0
         assert "doc_replays" not in c and "doc_captures" not in c
     assert len(enc.programs) == 0 and enc.programs.built == 0
+
+
+def _real_blocks(buf, valid, layout):
+    """A sample's blocks without a mesh's pad rows -> [(idx, keep, L,
+    real rows as fp32 numpy, their valid flags)]."""
+    out = []
+    for idx, keep, offset, B, L in layout:
+        assert B == -(-len(idx) // 2) * 2 or B == len(idx)
+        rows = slice(offset, offset + len(idx) * L)
+        out.append((idx, keep, L, buf[rows].float().numpy(), valid[rows]))
+    assert not buf.float().numpy()[~valid].any()
+    return out
+
+
+@pytest.mark.parametrize("collection", ["full", "mixed"])
+@pytest.mark.parametrize("encode", list(ENCODES))
+def test_a_mesh_encode_is_the_single_device_encode(encoders, codec, encode, collection):
+    """A 2-shard CPU mesh against one device, through each doc encode:
+    embeddings within the 1e-5 of ``test_dp_encode_matches_single_and_jax``;
+    codes, residuals, doclens and the sample's layout equal. ``mixed``
+    (37 passages) ends in a 5-row batch, which the mesh pads to 6: the
+    sample keeps that pad row (invalid, zero), the host outputs drop it."""
+    from colbert_torch.parallel.mesh import make_mesh
+
+    _, tenc, passages = encoders
+    _, cent, cutoffs = codec
+    if collection == "mixed":
+        passages = passages[:37]
+    meshed = _fresh(tenc)
+    meshed.attach_mesh(make_mesh(2, 1, device="cpu"))
+    run = ENCODES[encode]
+    got = run(meshed, passages, cent, cutoffs)
+    want = run(_fresh(tenc), passages, cent, cutoffs)
+    if encode == "encode_passages":
+        np.testing.assert_array_equal(got[1], want[1])
+        assert got[0].shape == want[0].shape
+        np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=1e-5)
+    elif encode == "encode_passages_compressed":
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w)
+    else:
+        np.testing.assert_array_equal(got[2], want[2])
+        if collection == "full":
+            assert [(o, B, L) for *_, o, B, L in got[3]] == [(o, B, L) for *_, o, B, L in want[3]]
+        gblocks, wblocks = _real_blocks(got[0], got[1], got[3]), _real_blocks(*want[:2], want[3])
+        assert len(gblocks) == len(wblocks)
+        for (gi, gk, gl, grows, gv), (wi, wk, wl, wrows, wv) in zip(gblocks, wblocks):
+            np.testing.assert_array_equal(gi, wi)
+            np.testing.assert_array_equal(gk, wk)
+            np.testing.assert_array_equal(gv, wv)
+            assert gl == wl
+            np.testing.assert_allclose(grows, wrows, rtol=1e-5, atol=1e-5)

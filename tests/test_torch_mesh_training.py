@@ -114,7 +114,7 @@ def test_mesh_encode_after_training_is_the_trained_model(shape):
     mask = np.ones((8, 16), bool)
     mask[3, 10:] = False
     with torch.no_grad():
-        got = penc._forward("encode_batch", ids, mask, mask, dtype_name="float32")[:8]
+        got = penc._shard_forward(ids, mask, mask, dtype_name="float32")[:8]
         want = penc.model.encode_batch(*penc._put_batch(ids, mask, mask),
                                        dtype_name="float32")
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-5)

@@ -197,7 +197,7 @@ def test_dp_encode_matches_single_and_jax(rng, encoders):
     cfg = jenc.bert_config
     ids, mask, keep = _batch(rng, cfg, 11, 12)  # 11 % 8 != 0
     with torch.no_grad():
-        out = tenc._forward("encode_batch", ids, mask, keep, dtype_name="float32")
+        out = tenc._shard_forward(ids, mask, keep, dtype_name="float32")
         one = tenc0.model.encode_batch(*tenc0._put_batch(ids, mask, keep),
                                        dtype_name="float32")
     assert out.shape[0] == 16  # padded to the data axis
@@ -242,7 +242,7 @@ def test_tp_encode_matches_single_and_jax(rng, encoders, n_data, n_model):
     assert specs["bert.layers.0.mlp_out.bias"] == "replicated"
     assert specs["bert.word.weight"] == specs["linear.weight"] == "replicated"
     with torch.no_grad():
-        out = tenc._forward("encode_batch", ids, mask, keep, dtype_name="float32")[:8]
+        out = tenc._shard_forward(ids, mask, keep, dtype_name="float32")[:8]
         one = tenc0.model.encode_batch(*tenc0._put_batch(ids, mask, keep),
                                        dtype_name="float32")
     np.testing.assert_allclose(out.numpy(), one.numpy(), rtol=1e-5, atol=1e-5)
@@ -251,7 +251,7 @@ def test_tp_encode_matches_single_and_jax(rng, encoders, n_data, n_model):
                                      jnp.asarray(keep), cfg=cfg, dtype_name="float32"))
     np.testing.assert_allclose(out.numpy(), jout, rtol=1e-5, atol=1e-5)
     with torch.no_grad():
-        b16 = tenc._forward("encode_batch", ids, mask, keep, dtype_name="bfloat16")[:8]
+        b16 = tenc._shard_forward(ids, mask, keep, dtype_name="bfloat16")[:8]
         one16 = tenc0.model.encode_batch(*tenc0._put_batch(ids, mask, keep),
                                          dtype_name="bfloat16")
     cos = (b16 * one16).sum(-1)[torch.from_numpy(keep)]
