@@ -3,13 +3,22 @@
 
     python3 chip_smoke.py
 
-1. Builds the three CUDA sources from ``colbert_torch/csrc/`` (stage-2
-   decompress+MaxSim, flash attention and the refine; one nvcc each,
-   started together, sm_90a) and prints the build time and ptxas's
-   registers and spills per kernel instantiation; the paths'
-   instantiations must not spill: the tensor-core flash kernel's bf16
-   hd=64, unwindowed and windowed, the tensor-core stage-2 kernel's nbits
-   2 and the refine's ``approx_maxsim_kernel<8>``.
+1. Builds the four CUDA sources from ``colbert_torch/csrc/`` (stage-2
+   decompress+MaxSim, flash attention, the refine and k-means' nearest
+   centroid; one nvcc each, started together, sm_90a) and prints the
+   build time and ptxas's registers and spills per kernel instantiation;
+   the paths' instantiations must not spill: the tensor-core flash
+   kernel's bf16 hd=64, unwindowed and windowed, the tensor-core stage-2
+   kernel's nbits 2, the refine's ``approx_maxsim_kernel<8>`` and
+   ``nearest_centroid_kernel<4>``.
+   ``[kmeans]``: the nearest-centroid kernel at both build cells' shapes
+   (2,883,584 bf16 rows x 16,384 centroids and 1,179,648 x 8,192, dim 128):
+   one launch a Lloyd pass (checked), its assignments against the plain
+   fp32 ``addmm`` + ``argmax`` on 65,536 rows strided across the whole
+   range (any disagreement a near tie within 1e-5 relative), then the
+   kernel, a whole Lloyd pass through
+   it and the plain version timed beside two bounds (the model's FLOPs at
+   the bf16 rate, and the three bf16 terms' products at that rate).
 2. Holds the stage-2 kernels against their plain PyTorch version on the
    card at the serving path's stage-2 shapes (B=32, Lq=32, NC=1024,
    Ld=160, dim=128, nbits=2, K=32768) and at edge cases (nbits 1/4/8, byte
@@ -110,9 +119,12 @@
    activations, the flash-routed configuration of ``bench.py``'s flash
    probe: sample encode, k-means, five chunks of fused encode+compress,
    IVF. Prints the phases, passages per second and the plan; checks the
-   artifacts and that the flash kernel ran 12 times (once per layer) for
-   every encoded batch, every launch through the ``mma`` kernel. Profiles one fused encode+compress batch and one
-   Lloyd pass at the build's partition count.
+   artifacts, that the flash kernel ran 12 times (once per layer) for
+   every encoded batch, every launch through the ``mma`` kernel, and that
+   the codec's k-means launched the nearest-centroid kernel once per
+   Lloyd pass (the tracing counters, recorded over the build). Profiles
+   one fused encode+compress batch and one Lloyd pass at the build's
+   partition count.
    ``[build-modernbert]``: GTE-ModernColBERT at its published widths (22
    layers, 768 hidden, 12 heads, GeGLU 1,152, 50,368 vocabulary; random
    weights) indexes 128 passages of 4,096-8,187 words through
@@ -239,7 +251,7 @@
    (stage 2, the refine) and ``flash_probe`` (flash), as that script logs
    them.
 13. Prints the card's name and power limit, a ``kernels`` JSON line (each
-   of the three kernels' launches on the main path and by path, its time,
+   of the four kernels' launches on the main path and by path, its time,
    its plain version's and its bound), and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -270,6 +282,12 @@ PEAK_FP32_FLOPS = 67e12     # H100 SXM, fp32 outside the tensor cores
 PEAK_TF32_FLOPS = 494.7e12  # H100 SXM, TF32 tensor cores, dense
 PEAK_BF16_FLOPS = 989e12    # H100 SXM, bf16 tensor cores, dense
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
+# [kmeans]: (cell, bf16 rows, centroids) of the build cells' Lloyd passes:
+# the padded sample buffer's rows, zero-weight padding included, as the
+# cells' kmeans_assign_rows counters read them
+KMEANS_SHAPES = (("index-build.large", 2_883_584, 16_384),
+                 ("index-build.modern-long", 1_179_648, 8_192))
+KMEANS_CHECK_ROWS = 65_536  # rows held against the plain version at each shape
 N_PASSAGES = 141_431
 BATCH = 32
 N_BATCHES = 3
@@ -1454,6 +1472,7 @@ def build_path(enc, passages, index_dir: str) -> dict:
     from colbert_torch.indexing.builder import Indexer
     from colbert_torch.ops import flash_attention as fa
     from colbert_torch.storage import format as fmt
+    from colbert_torch.utils import tracing
 
     shutil.rmtree(index_dir, ignore_errors=True)
     dev = enc.device
@@ -1463,11 +1482,13 @@ def build_path(enc, passages, index_dir: str) -> dict:
     fa.flash_attention.launches = 0
     fa.flash_attention.variant_launches.update(mma=0, simt=0)
     t0 = time.perf_counter()
-    with counted_doc_batches(enc) as seen:
+    with counted_doc_batches(enc) as seen, tracing.recording() as rec:
         Indexer(enc.config, encoder=enc, collection=passages, device=dev).index(index_dir)
     wall = time.perf_counter() - t0
     launches = fa.flash_attention.launches
     by_variant = dict(fa.flash_attention.variant_launches)
+    km_iters = rec.counters.get("kmeans_iters", 0)
+    km_launches = rec.counters.get("kmeans_assign_launches", 0)
     n = len(passages)
     plan = fmt.load_plan(index_dir)
     peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
@@ -1480,8 +1501,9 @@ def build_path(enc, passages, index_dir: str) -> dict:
     print(f"[build] encoded batches {seen['batches']} (flash-routed "
           f"{seen['flash_batches']}), padded token rows {seen['rows']}, flash kernel "
           f"launches {launches} (expected {layers} x {seen['flash_batches']}; by kernel "
-          f"{by_variant}); peak device "
-          f"memory {peak / 2**30:.2f} GiB; doc programs {json.dumps(programs)}")
+          f"{by_variant}); nearest-centroid launches {km_launches} for {km_iters} Lloyd "
+          f"passes; peak device memory {peak / 2**30:.2f} GiB; doc programs "
+          f"{json.dumps(programs)}")
 
     check(plan["num_documents"] == n and fmt.check_all_files_saved(index_dir) == [],
           "build: incomplete index")
@@ -1502,8 +1524,11 @@ def build_path(enc, passages, index_dir: str) -> dict:
               f"build: {launches} flash launches for {seen['flash_batches']} batches")
         check(by_variant == {"mma": launches, "simt": 0},
               f"build: flash launches by kernel {by_variant}, expected all mma")
+        check(km_launches == km_iters > 0,
+              f"build: {km_launches} nearest-centroid launches for {km_iters} Lloyd passes")
     return dict(build_seconds=wall, passages_per_s=n / wall, timings=plan["timings"],
-                flash_launches=launches, encoded_batches=seen["batches"], doc_programs=programs,
+                flash_launches=launches, kmeans_launches=km_launches,
+                encoded_batches=seen["batches"], doc_programs=programs,
                 num_partitions=plan["num_partitions"], num_embeddings=plan["num_embeddings"])
 
 
@@ -1539,6 +1564,70 @@ def profile_build_steps(enc, batch, index_dir: str) -> None:
     step()
     print(f"[profile] Lloyd pass, {rows.shape[0]} rows, k={cent.shape[0]} "
           + json.dumps(device_profile(step)))
+
+
+def kmeans_bounds_ms(n: int, k: int, dim: int) -> dict:
+    """The nearest-centroid launch's bounds: ``model``, its 2 n K dim FLOPs
+    at the bf16 tensor rate (the roofline rule of
+    ``kmeans.assign_roofline.build``), or the bf16 rows read once, the
+    int64 assignments written once and the fp32 centroids read once at the
+    memory's rate, whichever is longer; ``terms``, the three bf16 terms'
+    products at the bf16 rate (the design's least)."""
+    flops = 2.0 * n * k * dim
+    nbytes = n * dim * 2 + n * 8 + k * dim * 4
+    model = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    return {"model": model, "terms": 3 * flops / PEAK_BF16_FLOPS * 1e3}
+
+
+def kmeans_phase(device) -> dict:
+    """``[kmeans]``: see the module's docstring, step 1."""
+    import torch
+
+    from colbert_torch.ops import kmeans
+    from colbert_torch.utils import tracing
+
+    out = {}
+    for cell, n, k in KMEANS_SHAPES:
+        g = torch.Generator(device=device).manual_seed(n + k)
+        rows = torch.nn.functional.normalize(
+            torch.randn((n, 128), generator=g, device=device), dim=-1).to(torch.bfloat16)
+        cent = rows[torch.randperm(n, generator=g, device=device)[:k]].float()
+        with tracing.recording() as rec:
+            kmeans.lloyd_step(rows, cent, k=k)
+        launches = rec.counters.get("kmeans_assign_launches", 0)
+        check(launches == 1, f"[kmeans] {cell}: {launches} launches a Lloyd pass")
+        got = kmeans.assign_clusters(rows, cent)
+        # rows strided across the whole range, so far-out blocks are held too
+        sample = torch.arange(0, n, n // KMEANS_CHECK_ROWS, device=device)[:KMEANS_CHECK_ROWS]
+        ct, neg_c_sq = kmeans._centroid_terms(cent)
+        plain_scores = torch.addmm(neg_c_sq, rows[sample].float(), ct, alpha=2.0)
+        want = plain_scores.argmax(dim=-1)
+        off = (got[sample] != want).nonzero().flatten()
+        sa = plain_scores[off, want[off]]
+        sb = plain_scores[off, got[off]]
+        gap = float(((sa - sb).abs() / torch.maximum(sa.abs(), sb.abs())).max()) if len(off) else 0.0
+        check(gap <= 1e-5, f"[kmeans] {cell}: a disagreement with the plain version {gap:.3g} apart")
+        del plain_scores
+
+        def plain():
+            bs = kmeans._adaptive_bsize(k, 1024)
+            for s0 in range(0, n, bs):
+                kmeans._assign_chunk(rows[s0:s0 + bs], ct, neg_c_sq)
+
+        kern = time_ms(lambda: kmeans.assign_clusters(rows, cent), 3)
+        lloyd = time_ms(lambda: kmeans.lloyd_stats(rows, cent, k=k), 3)
+        plain_ms = time_ms(plain, 1)
+        kern2 = time_ms(lambda: kmeans.assign_clusters(rows, cent), 3)
+        b = kmeans_bounds_ms(n, k, 128)
+        res = dict(rows=n, k=k, launches_per_pass=launches, kernel_ms=[kern, kern2], lloyd_pass_ms=lloyd, plain_ms=plain_ms,
+                   bound_ms=b["model"], terms_bound_ms=b["terms"],
+                   roofline_pct=100.0 * b["model"] / min(kern, kern2),
+                   disagreements=int(len(off)), checked=KMEANS_CHECK_ROWS, max_tie_gap=gap)
+        print(f"[kmeans] {cell}: " + json.dumps(res) + f" on {card_line()}")
+        out[cell] = res
+        del rows, cent, got, sample
+        torch.cuda.empty_cache()
+    return out
 
 
 def build_search(enc, passages, index_dir: str, *, batch: int = BATCH) -> dict:
@@ -2021,6 +2110,7 @@ def multidevice_build(model, passages, work_dir: str) -> dict:
     from colbert_torch.ops import quantile
     from colbert_torch.retrieval.searcher import Searcher
     from colbert_torch.storage import format as fmt
+    from colbert_torch.utils import tracing
 
     dev = next(model.parameters()).device
     enc = build_corpus_encoder(model, dev, build_config(mesh_data_axis=2))
@@ -2040,7 +2130,7 @@ def multidevice_build(model, passages, work_dir: str) -> dict:
     reset_counts()
     try:
         t0 = time.perf_counter()
-        with counted_doc_batches(enc) as seen:
+        with counted_doc_batches(enc) as seen, tracing.recording() as rec:
             idx = Indexer(enc.config, encoder=enc, collection=passages,
                           device=mesh_devices(dev, 2))
             idx.index(index_dir)
@@ -2048,6 +2138,9 @@ def multidevice_build(model, passages, work_dir: str) -> dict:
     finally:
         codec_trainer._train_codec_sharded, quantile.sharded_quantiles = trainer, quantiles
     flash = dict(fa.flash_attention.variant_launches, launches=fa.flash_attention.launches)
+    km_iters = rec.counters.get("kmeans_iters", 0)
+    km_launches = rec.counters.get("kmeans_assign_launches", 0)
+    shards = idx.mesh.shape["data"]
     plan = fmt.load_plan(index_dir)
     layers = enc.bert_config.num_hidden_layers
     print(f"[multidevice] mesh build {idx.mesh.shape}: {len(passages)} passages in {wall:.2f}s "
@@ -2055,8 +2148,9 @@ def multidevice_build(model, passages, work_dir: str) -> dict:
           + json.dumps({k: v["seconds"] for k, v in plan["timings"].items()})
           + f"; {plan['num_partitions']} partitions; encoded batches {seen['batches']} "
           f"(flash-routed {seen['flash_batches']}); flash launches {flash} (expected "
-          f"{layers} x 2 shards x {seen['flash_batches']}); sharded codec calls {ran}; on "
-          f"{card_line()}")
+          f"{layers} x 2 shards x {seen['flash_batches']}); nearest-centroid launches "
+          f"{km_launches} for {km_iters} Lloyd passes over {shards} shards; sharded codec "
+          f"calls {ran}; on {card_line()}")
     check(ran == {"sharded_trainer": 1, "sharded_quantiles": 1},
           f"multidevice build: the sharded codec trainer did not run: {ran}")
     check(fmt.check_all_files_saved(index_dir) == [], "multidevice build: incomplete index")
@@ -2065,6 +2159,9 @@ def multidevice_build(model, passages, work_dir: str) -> dict:
               and flash["launches"] == layers * 2 * seen["flash_batches"]
               and flash["mma"] == flash["launches"] and flash["simt"] == 0,
               f"multidevice build: flash launches {flash}")
+        check(km_launches == shards * km_iters > 0,
+              f"multidevice build: {km_launches} nearest-centroid launches for {km_iters} "
+              f"Lloyd passes over {shards} shards")
     one = build_corpus_encoder(model, dev, build_config())
     searcher = Searcher(index_dir, encoder=one, device=dev)
     rng = np.random.default_rng(6)
@@ -2076,7 +2173,7 @@ def multidevice_build(model, passages, work_dir: str) -> dict:
     check(success >= 0.95, f"multidevice build: success@1 {success} < 0.95")
     shutil.rmtree(index_dir, ignore_errors=True)
     return dict(md_build_s=wall, md_build_phases=plan["timings"], md_build_success1=success,
-                md_flash_launches=flash["launches"])
+                md_flash_launches=flash["launches"], md_kmeans_launches=km_launches)
 
 
 def multidevice_encodes(model, batch) -> dict:
@@ -2174,6 +2271,7 @@ def update_phase(enc, passages, index_dir: str) -> dict:
     from colbert_torch.retrieval.searcher import Searcher
     from colbert_torch.serving import BatchingSearcher
     from colbert_torch.storage import format as fmt
+    from colbert_torch.utils import tracing
     from colbert_torch.utils.testing import synthetic_passages
 
     dev = enc.device
@@ -2198,10 +2296,11 @@ def update_phase(enc, passages, index_dir: str) -> dict:
         added = synthetic_passages(UPDATE_ADD, mean_words=BUILD_MEAN_WORDS, seed=8)
         up = IndexUpdater(index_dir, enc)
         t0 = time.perf_counter()
-        with counted_doc_batches(enc) as seen:
+        with counted_doc_batches(enc) as seen, tracing.recording() as rec:
             new_pids = up.add(added)
         sync()
         seconds["add"] = time.perf_counter() - t0
+        km_launches = rec.counters.get("kmeans_assign_launches", 0)
         flash = dict(fa.flash_attention.variant_launches, launches=fa.flash_attention.launches)
         plan = fmt.load_plan(index_dir)
         doclens = fmt.load_all_doclens(index_dir)
@@ -2209,9 +2308,12 @@ def update_phase(enc, passages, index_dir: str) -> dict:
         print(f"[update] add: {len(added)} passages in {seconds['add']:.2f}s -> "
               f"{len(added) / seconds['add']:.2f} passages/s; pids {new_pids[0]}..{new_pids[-1]}; "
               f"encoded batches {seen['batches']} (flash-routed {seen['flash_batches']}), flash "
-              f"launches {flash}; plan documents {plan['num_documents']} chunks "
+              f"launches {flash}, nearest-centroid launches {km_launches} (the codec is "
+              f"kept); plan documents {plan['num_documents']} chunks "
               f"{plan['num_chunks']} embeddings {plan['num_embeddings']}")
         check(np.array_equal(new_pids, np.arange(n0, n0 + len(added))), "update: new pids")
+        check(km_launches == 0, f"update: {km_launches} nearest-centroid launches, the codec "
+              f"is kept")
         check(plan["num_documents"] == n0 + len(added)
               and fmt.check_all_files_saved(index_dir) == [], "update: plan after add")
         check(int(doclens.sum()) == plan["num_embeddings"] == int(ivf_lengths.sum()),
@@ -2291,6 +2393,7 @@ def update_phase(enc, passages, index_dir: str) -> dict:
           + f"; stage-2 launches {counts}")
     check_search_launches(dev, counts, "update")
     return dict(update_seconds=seconds, update_flash_launches=flash["launches"],
+                update_kmeans_launches=km_launches,
                 update_launches=counts["launches"], update_refine_launches=counts["refine"],
                 update_eval=report,
                 update_add_pps=len(added) / seconds["add"])
@@ -3437,13 +3540,14 @@ def bench_phase(device, work_dir: str) -> dict:
 
 def kernel_label(mangled: str) -> str:
     """``flash_mma_kernel<bf16,64>`` (``stage2_mma_kernel<2>``,
-    ``approx_maxsim_kernel<8>``) for the
+    ``approx_maxsim_kernel<8>``, ``nearest_centroid_kernel<4>``) for the
     mangled name of that instantiation of one of the repo's kernels, else
     the name as it is."""
     import re
 
     m = re.search(r"\d+(flash_mma_kernel|flash_mma_window_kernel|flash_kernel|"
-                  r"stage2_mma_kernel|stage2_kernel|approx_maxsim_kernel)I(.+?)EEv", mangled)
+                  r"stage2_mma_kernel|stage2_kernel|approx_maxsim_kernel|"
+                  r"nearest_centroid_kernel)I(.+?)EEv", mangled)
     if m is None:
         return mangled
     args = re.sub(r"Li(\d+)E", r",\1", m.group(2)).lstrip(",")
@@ -3480,14 +3584,16 @@ def build_kernels() -> dict:
     from colbert_torch.ops import approx_maxsim as am
     from colbert_torch.ops import flash_attention as fa
     from colbert_torch.ops import fused_maxsim as fm
+    from colbert_torch.ops import nearest_centroid as nc
     from colbert_torch.utils.build import BUILD_DIR
 
-    for so in ("libstage2_maxsim.so", "libflash_attention.so", "libapprox_maxsim.so"):
+    for so in ("libstage2_maxsim.so", "libflash_attention.so", "libapprox_maxsim.so",
+               "libnearest_centroid.so"):
         if os.path.exists(os.path.join(BUILD_DIR, so)):
             os.remove(os.path.join(BUILD_DIR, so))
     t0 = time.perf_counter()
     kernels_src = {"stage2_maxsim.cu": fm.build_kernel, "flash_attention.cu": fa.build_kernel,
-                   "approx_maxsim.cu": am.build_kernel}
+                   "approx_maxsim.cu": am.build_kernel, "nearest_centroid.cu": nc.build_kernel}
     with ThreadPoolExecutor(len(kernels_src)) as ex:
         logs = dict(zip(kernels_src, ex.map(lambda build: build(), kernels_src.values())))
     print(f"[build] {', '.join(kernels_src)} built in {time.perf_counter() - t0:.1f}s")
@@ -3498,7 +3604,8 @@ def build_kernels() -> dict:
     for src, path_kernel in (("flash_attention.cu", "flash_mma_kernel<bf16,64>"),
                              ("flash_attention.cu", "flash_mma_window_kernel<bf16,64>"),
                              ("stage2_maxsim.cu", "stage2_mma_kernel<2>"),
-                             ("approx_maxsim.cu", "approx_maxsim_kernel<8>")):
+                             ("approx_maxsim.cu", "approx_maxsim_kernel<8>"),
+                             ("nearest_centroid.cu", "nearest_centroid_kernel<4>")):
         found = [spills for name, spills, _ in ptxas_resources(logs[src]) if name == path_kernel]
         check(found == [no_spill], f"{path_kernel}: ptxas reports {found}")
     return logs
@@ -3528,6 +3635,7 @@ def main() -> int:
     build_kernels()
     max_err = kernel_vs_plain(device)
     stage2_sweep(device)
+    kmeans_res = kmeans_phase(device)
     index_dir = os.path.join(BUILD_DIR, "smoke_index")
     try:
         mp = main_path(device, n_passages=N_PASSAGES, bert_cfg=BertConfig(),
@@ -3667,6 +3775,21 @@ def main() -> int:
                           "quality": ql["quality_refine_launches"],
                           "multidevice": md["md_refine_launches"],
                           "bench: bench_torch.py serve_and_probe": bn["refine_launches"]},
+    ), dict(
+        name="nearest_centroid", route="cuda", variant="mma.sync bf16, three centroid terms",
+        source="colbert_torch/csrc/nearest_centroid.cu",
+        replaces="colbert_tpu/ops/kmeans.py:64",
+        launches=bp["kmeans_launches"],
+        ms={c: min(r["kernel_ms"]) for c, r in kmeans_res.items()},
+        lloyd_pass_ms={c: r["lloyd_pass_ms"] for c, r in kmeans_res.items()},
+        plain_ms={c: r["plain_ms"] for c, r in kmeans_res.items()},
+        bound_ms={c: r["bound_ms"] for c, r in kmeans_res.items()}, bound_by="operations",
+        terms_bound_ms={c: r["terms_bound_ms"] for c, r in kmeans_res.items()},
+        library_ms=None,
+        launches_by_path={"build": bp["kmeans_launches"],
+                          "update": live["update_kmeans_launches"],
+                          "multidevice": md["md_kmeans_launches"],
+                          "kmeans": {c: r["launches_per_pass"] for c, r in kmeans_res.items()}},
     )]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

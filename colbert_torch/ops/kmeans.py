@@ -1,11 +1,23 @@
 """Batched Lloyd's k-means on one device (port of ``colbert_tpu.ops.kmeans``).
 
 Same algorithm as the JAX package (reference utils.jl:253-318): assignment
-by the max of ``2·x·c − ‖c‖²`` in fp32 (callers keep TF32 off), per-cluster
-sums and counts by scatter-add (``index_add_``) over row chunks whose
-``(bsize, k)`` score tile stays under 64 MB, empty clusters keeping their
-previous centroid, and the reference's early exit: stop when the largest
-centroid move is below ``tol`` or after ``niters`` iterations.
+by the max of ``2·x·c − ‖c‖²`` in fp32, per-cluster sums and counts by
+scatter-add (``index_add_``), empty clusters keeping their previous
+centroid, and the reference's early exit: stop when the largest centroid
+move is below ``tol`` or after ``niters`` iterations.
+
+The assignment takes one of two routes by the rows' device:
+
+- CUDA tensors: one launch of the nearest-centroid kernel per pass
+  (:mod:`colbert_torch.ops.nearest_centroid`: bf16 terms on the tensor
+  cores, products in the fp32 class, the argmax fused, no score tile).
+  Anything the kernel refuses raises.
+- CPU tensors: the plain version, an fp32 ``addmm`` (callers keep TF32
+  off) and ``argmax`` over row chunks whose ``(bsize, k)`` score tile
+  stays under 64 MB. ``bsize`` is read by this route only.
+
+Either way the scatter then runs over as few chunks of ``SCATTER_BYTES``
+of fp32 rows as memory allows.
 
 The JAX package runs the loop as one ``lax.while_loop`` program; here it is
 a Python loop that reads the shift on the host each iteration. On CUDA,
@@ -22,6 +34,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from colbert_torch.ops.nearest_centroid import nearest_centroid
+
 __all__ = ["KMeansResult", "assign_clusters", "lloyd_stats", "centroids_from_stats",
            "lloyd_step", "kmeans"]
 
@@ -33,8 +47,13 @@ class KMeansResult(NamedTuple):
     shift: float               # final max-abs centroid move
 
 
+# the fp32 rows one scatter launch of a pass takes at most
+SCATTER_BYTES = 1 << 30
+
+
 def _adaptive_bsize(k: int, requested: int) -> int:
-    """Row-chunk size capped so the (bsize, k) fp32 score tile stays <= 64 MB."""
+    """The plain version's row-chunk size, capped so the (bsize, k) fp32
+    score tile stays <= 64 MB."""
     cap = (64 << 20) // (4 * max(1, k))
     return max(64, min(requested, (cap // 64) * 64))
 
@@ -58,7 +77,12 @@ def _assign_chunk(chunk: torch.Tensor, ct: torch.Tensor, neg_c_sq: torch.Tensor)
 def assign_clusters(data: torch.Tensor, centroids: torch.Tensor, *,
                     bsize: int = 1024) -> torch.Tensor:
     """Nearest centroid (squared distance) per row -> int64 ``(n,)``
-    (reference utils.jl:71-79)."""
+    (reference utils.jl:71-79): one kernel launch for CUDA tensors, the
+    plain version for CPU tensors."""
+    if data.device.type == "cuda":
+        return nearest_centroid(data, centroids)
+    if data.device.type != "cpu":
+        raise ValueError(f"k-means runs on cuda or cpu, not {data.device}")
     bsize = _adaptive_bsize(centroids.shape[0], bsize)
     ct, neg_c_sq = _centroid_terms(centroids)
     out = torch.empty(data.shape[0], dtype=torch.int64, device=data.device)
@@ -73,19 +97,19 @@ def lloyd_stats(data: torch.Tensor, centroids: torch.Tensor, *, k: int,
     """One pass over ``data``: per-cluster (weighted sum, weighted count)
     under the current centroids. ``weights`` (0 = ignore the row) mark the
     valid rows of a padded sample."""
-    bsize = _adaptive_bsize(k, bsize)
-    ct, neg_c_sq = _centroid_terms(centroids)
+    assign = assign_clusters(data, centroids, bsize=bsize)
     sums = torch.zeros((k, data.shape[1]), dtype=torch.float32, device=data.device)
     counts = torch.zeros((k,), dtype=torch.float32, device=data.device)
-    for s in range(0, data.shape[0], bsize):
-        chunk = data[s:s + bsize].float()
-        assign = _assign_chunk(chunk, ct, neg_c_sq)
+    step = max(1, SCATTER_BYTES // (4 * data.shape[1]))
+    for s in range(0, data.shape[0], step):
+        rows = data[s:s + step].to(torch.float32, copy=True)
         if weights is None:
-            w = torch.ones(chunk.shape[0], dtype=torch.float32, device=data.device)
+            w = torch.ones(rows.shape[0], dtype=torch.float32, device=data.device)
         else:
-            w = weights[s:s + bsize].float()
-        sums.index_add_(0, assign, chunk * w[:, None])
-        counts.index_add_(0, assign, w)
+            w = weights[s:s + step].float()
+            rows.mul_(w[:, None])
+        sums.index_add_(0, assign[s:s + step], rows)
+        counts.index_add_(0, assign[s:s + step], w)
     return sums, counts
 
 

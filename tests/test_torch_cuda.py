@@ -47,8 +47,14 @@ encode: each of the three doc encodes through its replayed programs bit for
 bit its op-by-op route, a build's chunks through the programs bit for bit
 the same chunks encoded op by op against the build's own codec, a replay
 under ``set_sync_debug_mode("error")``, and a flash-routed 64 x 512 batch
-replayed to the eager result with the same flash launch count. Every test
-skips without a GPU. This file imports no JAX; on a machine without JAX run it as
+replayed to the eager result with the same flash launch count; and
+k-means' nearest-centroid kernel against the plain fp32 ``addmm`` +
+``argmax`` on bf16 and fp32 rows (K 1 to 16,384, every width, ragged n;
+planted exact ties to the lower index, any other disagreement a near tie
+within 1e-5 relative), a Lloyd step through it against the plain version
+on the CPU (1e-5), no score tile in device memory and no host sync, and
+its launch and tracing counts (one launch a pass). Every test skips
+without a GPU. This file imports no JAX; on a machine without JAX run it as
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
@@ -60,6 +66,8 @@ import torch
 from colbert_torch.ops import approx_maxsim as am
 from colbert_torch.ops import flash_attention as fa
 from colbert_torch.ops import fused_maxsim as fm
+from colbert_torch.ops import kmeans as km
+from colbert_torch.ops import nearest_centroid as nc
 
 from _torch_stage2_cases import CASES, port_args, stage2_case
 
@@ -1379,3 +1387,165 @@ def test_a_flash_routed_batch_replays_to_the_eager_result(cuda_device, monkeypat
     (prog,) = enc.programs.programs()
     assert prog.graph is not None and prog.replays == 1
     assert _bytes_of(outs["captured"]) == _bytes_of(outs["eager"])
+
+
+# --- k-means' assignment: the nearest-centroid kernel ---
+
+# exactly tied centroid pairs (the second a copy of the first): in one n8
+# tile, across a quad's lanes, across the tile's two warps, across tiles
+KMEANS_TIES = [(0, 1), (2, 4), (5, 40), (6, 700), (8, 16383)]
+
+
+def _kmeans_case(device, n, k, dim, seed):
+    """Unit centroids and rows each near one of them (noise of norm ~0.3),
+    with the pairs of ``KMEANS_TIES`` below k made exact copies and row i
+    of the i-th pair placed on it -> (rows fp32, centroids, pairs)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    cent = torch.nn.functional.normalize(torch.randn((k, dim), generator=g, device=device), dim=-1)
+    noise = torch.randn((n, dim), generator=g, device=device) * (0.3 / dim ** 0.5)
+    rows = cent[torch.randint(0, k, (n,), generator=g, device=device)] + noise
+    rows = torch.nn.functional.normalize(rows, dim=-1)
+    pairs = [(a, b) for a, b in KMEANS_TIES if b < k][:n]
+    for i, (a, b) in enumerate(pairs):
+        cent[b] = cent[a]
+        rows[i] = cent[a]
+    return rows, cent, pairs
+
+
+def _plain_scores(rows, cent):
+    """The plain version's scores on the card: fp32 ``addmm``, TF32 off."""
+    ct, neg_c_sq = km._centroid_terms(cent)
+    return torch.addmm(neg_c_sq, rows.float(), ct, alpha=2.0)
+
+
+def _check_against_plain(rows, cent, pairs, got):
+    scores = _plain_scores(rows, cent)
+    want = scores.argmax(dim=-1)
+    for i, (a, _) in enumerate(pairs):
+        assert int(got[i]) == int(want[i]) == a, (i, a, int(got[i]), int(want[i]))
+    off = (got != want).nonzero().flatten()
+    sa, sb = scores[off, want[off]], scores[off, got[off]]
+    near = (sa - sb).abs() <= 1e-5 * torch.maximum(sa.abs(), sb.abs())
+    assert bool(near.all()), (off[~near][:5], sa[~near][:5], sb[~near][:5])
+    return int(off.numel())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dim", [32, 128])
+@pytest.mark.parametrize("k", [1, 7, 1000, 16384])
+def test_nearest_centroid_kernel_matches_plain(cuda_device, dtype, dim, k):
+    """One launch assigns 3,001 rows (not a multiple of any tile) against
+    the plain version's argmax: planted exact ties go to the lower index,
+    and every other disagreement is a near tie of the plain scores (1e-5
+    relative)."""
+    from colbert_torch.utils import tracing
+
+    rows, cent, pairs = _kmeans_case(cuda_device, 3001, k, dim, seed=k + dim)
+    rows = rows.to(dtype)
+    with tracing.recording() as rec:
+        got = km.assign_clusters(rows, cent)
+    torch.cuda.synchronize()
+    assert rec.counters["kmeans_assign_launches"] == 1
+    assert got.dtype == torch.int64 and got.shape == (3001,)
+    _check_against_plain(rows, cent, pairs, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dim,n", [(16, 1), (48, 255), (96, 257), (256, 700), (128, 64)])
+def test_nearest_centroid_kernel_takes_every_width(cuda_device, dtype, dim, n):
+    """Every width up to 256 in steps of 16 reaches the kernel (fp32 rows at
+    256 take its 64-row tile), against the plain version as above."""
+    rows, cent, pairs = _kmeans_case(cuda_device, n, 300, dim, seed=dim * 3 + n)
+    rows = rows.to(dtype)
+    _check_against_plain(rows, cent, pairs, km.assign_clusters(rows, cent))
+
+
+@pytest.mark.cuda
+def test_nearest_centroid_refusals(cuda_device):
+    rows = torch.zeros((8, 40), device=cuda_device)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        km.assign_clusters(rows, rows[:2])
+    with pytest.raises(ValueError, match="multiples of 16"):
+        km.assign_clusters(torch.zeros((8, 272), device=cuda_device),
+                           torch.zeros((2, 272), device=cuda_device))
+    with pytest.raises(ValueError, match="centroids are on"):
+        km.assign_clusters(torch.zeros((8, 32), device=cuda_device), torch.zeros((2, 32)))
+    assert km.assign_clusters(torch.zeros((0, 32), device=cuda_device),
+                              torch.zeros((2, 32), device=cuda_device)).shape == (0,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_lloyd_step_through_the_kernel_matches_plain(cuda_device, dtype):
+    """256 separated clusters at dim 128, each centroid starting near its
+    cluster's center, a tenth of the rows at weight 0: one Lloyd step on
+    the card (the kernel, then the scatter) against the plain version's on
+    the CPU, the same assignments, centroids within 1e-5, the shift too."""
+    rng = np.random.default_rng(5)
+    centers = rng.standard_normal((256, 128)).astype(np.float32)
+    data = centers[rng.integers(0, 256, 60_001)] + 0.1 * rng.standard_normal(
+        (60_001, 128)).astype(np.float32)
+    w = (rng.random(60_001) > 0.1).astype(np.float32)
+    c0 = centers + 0.05 * rng.standard_normal((256, 128)).astype(np.float32)
+    x = torch.from_numpy(data).to(dtype)
+    assign = km.assign_clusters(x.to(cuda_device), torch.from_numpy(c0).to(cuda_device)).cpu()
+    assert torch.equal(assign, km.assign_clusters(x, torch.from_numpy(c0)))
+    got, gshift = km.lloyd_step(x.to(cuda_device), torch.from_numpy(c0).to(cuda_device), k=256,
+                                weights=torch.from_numpy(w).to(cuda_device))
+    want, wshift = km.lloyd_step(x, torch.from_numpy(c0), k=256, weights=torch.from_numpy(w))
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5, rtol=0)
+    assert abs(gshift - wshift) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_assign_clusters_writes_no_score_tile(cuda_device):
+    """2^21 bf16 rows against 4,096 centroids: the device memory that
+    ``assign_clusters`` adds at its peak stays under n x 16 bytes plus the
+    centroid terms (the scores would take 32 GB; the plain version's
+    chunks 64 MB), and the launch makes no host synchronization."""
+    n, k = 1 << 21, 4096
+    rows, cent, _ = _kmeans_case(cuda_device, n, k, 128, seed=3)
+    rows = rows.to(torch.bfloat16)
+    km.assign_clusters(rows[:1024], cent)  # builds the library
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = km.assign_clusters(rows, cent)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    terms = k * 128 * nc.TERMS * 2 + k * 4
+    assert rise < n * 16 + terms, (rise, n * 16 + terms)
+    assert out.shape == (n,)
+    sample = torch.arange(0, n, 997, device=cuda_device)
+    _check_against_plain(rows[sample], cent, [], out[sample])
+
+
+@pytest.mark.cuda
+def test_assign_counters_add_up(cuda_device):
+    """One launch a Lloyd pass, as the tracing counters count it: rows =
+    the padded sample's rows, pairs = rows x K; a codec training over 5,000
+    rows (padded to 8,192) for 3 iterations counts 3."""
+    from colbert_torch.indexing.codec_trainer import sample_bucket_step, train_codec
+    from colbert_torch.utils import tracing
+
+    rows, cent, _ = _kmeans_case(cuda_device, 5000, 300, 128, seed=8)
+    rows = rows.to(torch.bfloat16)
+    w = torch.ones(5000, device=cuda_device)
+    with tracing.recording() as rec:
+        km.lloyd_step(rows, cent, k=300, weights=w)
+    assert rec.counters == {"kmeans_assign_launches": 1, "kmeans_assign_rows": 5000,
+                            "kmeans_assign_pairs": 5000 * 300}
+    padded = -(-5000 // sample_bucket_step(5000)) * sample_bucket_step(5000)
+    with tracing.recording() as rec:
+        train_codec(rows, rows[:200], num_partitions=300, nbits=2, kmeans_niters=3, tol=0.0,
+                    sample_weights=w, init_idx=np.arange(300))
+    c = rec.counters
+    assert c["kmeans_iters"] == 3 and c["kmeans_assign_launches"] == 3
+    assert c["kmeans_assign_rows"] == 3 * padded == 3 * 8192
+    assert c["kmeans_assign_pairs"] == 3 * padded * 300
