@@ -134,6 +134,15 @@
    launches, all ``mma``, none materialized; prints the build's seconds
    and the top-1 self-retrieval of 8 passages through ``Searcher``
    (random weights: information only).
+   ``[build-moe]``: Moonlight-16B-A3B at every published width (27 layers,
+   DeepSeek-V3's latent attention, 26 MoE layers of 64 experts, top-6, 2
+   shared; 163,840 vocabulary; random bf16 weights drawn on the card)
+   indexes 128 passages of 256-1,020 words through ``Indexer.index``
+   (doc_maxlen 1,024, index_bsize 64): every batch counts 27 attention
+   calls, 26 MoE layer calls and 52 grouped expert launches; then 8
+   queries through ``Searcher`` three times, the last two replays of the
+   captured serving program with the expert layer inside (52 grouped
+   launches a search counted).
 6. ``[build-search]``: ``Searcher`` answers two 32-query batches over the
    built index (each query the first 40 words of a passage) through the
    ``mma`` stage-2 kernel (checked); prints the top-1 self-retrieval rate
@@ -309,6 +318,8 @@ WINDOW_B = 64               # the index-build.modern-long cell's doc batch
 WINDOW_SHAPES = (4224, 6144, 8192)  # its shortest, mean and longest padded lengths
 MB_PASSAGES = 128           # [build-modernbert]: two doc batches of 64
 MB_WORDS = (4096, 8188)     # words per passage (the cell's range)
+MOE_PASSAGES = 128          # [build-moe]: two doc batches of 64
+MOE_WORDS = (256, 1021)     # words per passage (index-build.moe-chunks' range)
 BATCHER_QUERIES = 256       # [serve-batcher]: single queries from 16 threads
 BATCHER_THREADS = 16
 HTTP_REQUESTS = 128         # [serve-http]: concurrent POST /search
@@ -1294,6 +1305,86 @@ def modernbert_build(device, work_dir: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return dict(seconds=seconds, batches=batches, flash_launches=flash, self_top1=top1)
+
+
+def moe_build(device, work_dir: str) -> dict:
+    """[build-moe]: a Moonlight-16B-A3B ColBERT index (DeepSeek-V3 block at
+    every published width, bf16 matrices drawn on the card) -> launches,
+    seconds and the self-retrieval count."""
+    import torch
+
+    from colbert_torch.config import ColBERTConfig
+    from colbert_torch.indexing.builder import Indexer
+    from colbert_torch.models.colbert import ColBERT
+    from colbert_torch.models.deepseek_v3 import DeepseekV3Config
+    from colbert_torch.models.encoder import ColBERTEncoder
+    from colbert_torch.retrieval.searcher import Searcher
+    from colbert_torch.tokenization.wordpiece import WordPieceTokenizer
+    from colbert_torch.utils import tracing
+    from colbert_torch.utils.testing import make_vocab
+
+    cfg = DeepseekV3Config()
+    # 15.6 B parameters: built on the card in bf16 (fp32 would take 62.5 GB)
+    default = torch.get_default_dtype()
+    torch.set_default_dtype(torch.bfloat16)
+    try:
+        with torch.device(device):
+            model = ColBERT(cfg, 128)
+    finally:
+        torch.set_default_dtype(default)
+    g = torch.Generator(device=device).manual_seed(25)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if not name.endswith("scale"):
+                p.normal_(0.0, 0.02, generator=g)
+        for layer in model.bert.layers[1:]:
+            layer.mlp.router_bias.normal_(0.0, 0.02, generator=g)
+    ccfg = ColBERTConfig(dim=128, doc_maxlen=1024, query_maxlen=32, index_bsize=64,
+                         length_bucket=64, use_pallas=True, flash_min_seqlen=2048, nbits=2,
+                         kmeans_niters=4)
+    enc = ColBERTEncoder(model, WordPieceTokenizer(make_vocab(cfg.vocab_size - 52)), ccfg,
+                         device=device)
+    rng = np.random.default_rng(25)
+    passages = [" ".join(f"w{j}" for j in rng.integers(0, cfg.vocab_size - 52, n))
+                for n in rng.integers(*MOE_WORDS, MOE_PASSAGES)]
+    path = os.path.join(work_dir, "smoke_moe_index")
+    try:
+        t0 = time.perf_counter()
+        with tracing.recording() as t:
+            Indexer(ccfg, encoder=enc, collection=passages, device=device).index(
+                path, overwrite=True)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        c = t.counters
+        batches = c.get("doc_batches", 0)
+        counts = (c.get("attn_mla_calls", 0), c.get("moe_layer_calls", 0),
+                  c.get("moe_grouped_launches", 0))
+        print(f"[build-moe] {MOE_PASSAGES} passages in {seconds:.2f}s "
+              f"({MOE_PASSAGES / seconds:.1f} passages/s, first build); {batches} doc batches; "
+              f"attention, MoE layer calls, grouped launches {counts}; peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+        check(batches > 0 and counts == (27 * batches, 26 * batches, 52 * batches),
+              f"[build-moe] counts {counts} over {batches} batches, expected 27 attention "
+              "calls, 26 MoE layer calls and 52 grouped launches a batch")
+        searcher = Searcher(path, encoder=enc, config=ccfg, device=device)
+        queries = [" ".join(p.split()[:25]) for p in passages[:8]]
+        with tracing.recording() as t:
+            for _ in range(3):  # warm-up and capture, then replays
+                pids, scores = searcher.search_batch(queries, k=5)
+        check(pids.shape == (8, 5) and bool(np.isfinite(scores).all())
+              and t.counters.get("program_replays", 0) == 2
+              and t.counters.get("moe_grouped_launches", 0) == 3 * 52,
+              f"[build-moe] search gave {pids.shape}, counters {t.counters}")
+        top1 = int((pids[:, 0] == np.arange(8)).sum())
+        print(f"[build-moe] served queries replayed with the expert layer; self-retrieval "
+              f"top-1 {top1}/8 (random weights: information only) on {card_line()}")
+        del searcher
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    del enc, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(seconds=seconds, batches=batches, counts=counts, self_top1=top1)
 
 
 def upcast_stand_in(q, k, v, mask_bias, num_heads: int, use_flash: bool = False):
@@ -3680,6 +3771,7 @@ def main() -> int:
     finally:
         shutil.rmtree(build_dir, ignore_errors=True)
     mb = modernbert_build(device, BUILD_DIR)
+    moe_build(device, BUILD_DIR)
     t_md = time.perf_counter()
     md.update(multidevice_build(enc.model, passages[:MD_BUILD_PASSAGES], BUILD_DIR))
     md_seconds["build"] = time.perf_counter() - t_md

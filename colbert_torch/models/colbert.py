@@ -1,8 +1,10 @@
 """ColBERT = BERT + a hidden->dim linear head (port of ``colbert_tpu.models.colbert``).
 
-The encoder is BERT (:class:`~colbert_torch.models.bert.BertConfig`) or
+The encoder is BERT (:class:`~colbert_torch.models.bert.BertConfig`),
 ModernBERT (:class:`~colbert_torch.models.modernbert.ModernBertConfig`,
-GTE-ModernColBERT's), built by the config's type; either way the backbone
+GTE-ModernColBERT's) or DeepSeek-V3
+(:class:`~colbert_torch.models.deepseek_v3.DeepseekV3Config`,
+Moonlight-16B-A3B's), built by the config's type; either way the backbone
 is the attribute ``bert`` and its config ``bert_config``.
 
 ``forward_normalized`` is ``_forward_normalized``: project the final hidden
@@ -27,6 +29,7 @@ import torch
 from torch import nn
 
 from colbert_torch.models.bert import BertConfig, BertModel
+from colbert_torch.models.deepseek_v3 import DeepseekV3Config, DeepseekV3Model
 from colbert_torch.models.modernbert import ModernBertConfig, ModernBertModel
 from colbert_torch.ops import codec as codec_ops
 
@@ -37,10 +40,12 @@ DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
           "float32": torch.float32}
 
 
-def encoder_for(cfg: BertConfig | ModernBertConfig) -> nn.Module:
+def encoder_for(cfg: BertConfig | ModernBertConfig | DeepseekV3Config) -> nn.Module:
     """A fresh encoder of the config's architecture."""
     if isinstance(cfg, ModernBertConfig):
         return ModernBertModel(cfg)
+    if isinstance(cfg, DeepseekV3Config):
+        return DeepseekV3Model(cfg)
     if isinstance(cfg, BertConfig):
         return BertModel(cfg)
     raise TypeError(f"no encoder architecture for a {type(cfg).__name__}")
@@ -50,11 +55,11 @@ class ColBERT(nn.Module):
     """``bert`` replaces the encoder of the model (a
     :class:`~colbert_torch.models.bert.TensorParallelBert`, which
     :func:`colbert_torch.parallel.tp.shard_params` builds); by default it is
-    a fresh :class:`BertModel` or :class:`ModernBertModel`, by the type of
-    ``cfg``."""
+    a fresh :class:`BertModel`, :class:`ModernBertModel` or
+    :class:`DeepseekV3Model`, by the type of ``cfg``."""
 
-    def __init__(self, cfg: BertConfig | ModernBertConfig, dim: int = 128, *,
-                 linear_bias: bool = False, bert=None):
+    def __init__(self, cfg: BertConfig | ModernBertConfig | DeepseekV3Config,
+                 dim: int = 128, *, linear_bias: bool = False, bert=None):
         super().__init__()
         self.bert_config = cfg
         self.bert = encoder_for(cfg) if bert is None else bert

@@ -18,7 +18,8 @@ the build path:
     (length buckets are then forced to 128, ``strict_multiple``). On the
     CPU nothing routes there and buckets stay as configured, as in the JAX
     package on its CPU backend. A ModernBERT model sends both its layer
-    kinds there, local layers windowed,
+    kinds there, local layers windowed; a DeepSeek-V3 model refuses it
+    (its configuration keeps ``flash_min_seqlen`` above ``doc_maxlen``),
   - one step (``_doc_step``) picks each doc batch's route and gives its
     embeddings on the encoder's device: with no mesh, a full batch
     (``index_bsize`` rows) of at most ``MAX_GRAPH_TOKENS`` padded tokens
@@ -52,6 +53,7 @@ from colbert_torch.models.colbert import (
     compress_rows,
     skiplist_keep_mask,
 )
+from colbert_torch.models.deepseek_v3 import DeepseekV3Config
 from colbert_torch.models.modernbert import ModernBertConfig
 from colbert_torch.ops import codec as codec_ops
 from colbert_torch.retrieval.program import Program, ProgramCache, input_dtype, tensor_signature
@@ -154,11 +156,12 @@ class ColBERTEncoder:
     skiplist: list[int] = field(default_factory=list)
 
     def __post_init__(self) -> None:
-        positions = self.model.bert_config.max_position_embeddings
-        if isinstance(self.model.bert_config, ModernBertConfig) and \
+        arch = self.model.bert_config
+        positions = arch.max_position_embeddings
+        if isinstance(arch, (ModernBertConfig, DeepseekV3Config)) and \
                 self.config.doc_maxlen > positions:
             raise ValueError(f"doc_maxlen {self.config.doc_maxlen} is above the "
-                             f"{positions} positions ModernBERT declares")
+                             f"{positions} positions {type(arch).__name__} declares")
         self.device = resolve_device(self.device)
         self.model = self.model.to(self.device).eval()
         if not self.skiplist:

@@ -38,14 +38,16 @@ _ST_DTYPES = {
 
 def _refuse_other_arch(cfg) -> None:
     """A ``ValueError`` naming the architecture for anything but BERT: a
-    port config (``ModernBertConfig``) or an HF ``config.json`` dict whose
-    ``model_type`` is another's. Only BERT checkpoints are read and
-    written."""
+    port config (``ModernBertConfig``, ``DeepseekV3Config``) or an HF
+    ``config.json`` dict whose ``model_type`` is another's. Only BERT
+    checkpoints are read and written: no other architecture has a map from
+    its published parameter names to the port's."""
     name = (cfg.get("model_type", "bert") if isinstance(cfg, dict)
             else "bert" if isinstance(cfg, BertConfig) else type(cfg).__name__)
     if name != "bert":
         raise ValueError(f"checkpoints of {name} are not read or written: the loader "
-                         "handles BERT ColBERT checkpoints only")
+                         "handles BERT ColBERT checkpoints only (no map of its published "
+                         "parameter names to the port's)")
 
 
 def read_safetensors(path: str) -> Dict[str, torch.Tensor]:

@@ -43,7 +43,8 @@ def validate_tp(cfg: BertConfig, n_model: int) -> None:
     Megatron split, the mesh trainer) run BERT only."""
     if not isinstance(cfg, BertConfig):
         raise ValueError(f"the mesh paths run BERT only, not {type(cfg).__name__} "
-                         "(ModernBERT encodes and indexes on one device)")
+                         "(ModernBERT and DeepSeek-V3 encode and index on one device: "
+                         "the mesh has no split of their layers and no expert parallelism)")
     if n_model <= 1:
         return
     if cfg.num_attention_heads % n_model:

@@ -53,7 +53,15 @@ k-means' nearest-centroid kernel against the plain fp32 ``addmm`` +
 planted exact ties to the lower index, any other disagreement a near tie
 within 1e-5 relative), a Lloyd step through it against the plain version
 on the CPU (1e-5), no score tile in device memory and no host sync, and
-its launch and tracing counts (one launch a pass). Every test skips
+its launch and tracing counts (one launch a pass); and DeepSeek-V3's
+expert layer: the grouped route (``torch._grouped_mm``) against the plain
+loop (within 2^-7 of the largest output, an empty expert among them, no
+host sync), a small DeepSeek-V3 encoder's doc batches replayed bit for bit
+as op by op (the expert layer inside the captured program, a replay under
+sync debug mode, its MoE counters per replay), its index built and served
+through the captured serving program against the eager entry, and the
+grouped-product kernels under the profiler equal to the launches counted,
+eager and replayed. Every test skips
 without a GPU. This file imports no JAX; on a machine without JAX run it as
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -1549,3 +1557,185 @@ def test_assign_counters_add_up(cuda_device):
     assert c["kmeans_iters"] == 3 and c["kmeans_assign_launches"] == 3
     assert c["kmeans_assign_rows"] == 3 * padded == 3 * 8192
     assert c["kmeans_assign_pairs"] == 3 * padded * 300
+
+
+# --- the expert layer (DeepSeek-V3's MoE) ---
+
+
+def _moe_case(device, T, seed=0, H=256, I=128, E=16, k=4):
+    """Rows, routing and bf16 expert stacks; expert 3 gets no row."""
+    from colbert_torch.ops import moe
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(T, H, generator=g, device=device).to(torch.bfloat16)
+    gate_up = (torch.randn(E, 2 * I, H, generator=g, device=device) * 0.05).to(torch.bfloat16)
+    down = (torch.randn(E, H, I, generator=g, device=device) * 0.05).to(torch.bfloat16)
+    gate = torch.randn(E, H, generator=g, device=device) * 0.05
+    choice, w = moe.route(x, gate, torch.randn(E, generator=g, device=device) * 0.02, k, 2.446)
+    choice = torch.where(choice == 3, torch.full_like(choice, E), choice)
+    # a row that chose 3 takes an expert it has not chosen
+    for t, j in (choice == E).nonzero().tolist():
+        free = sorted(set(range(E)) - {3} - set(choice[t].tolist()))
+        choice[t, j] = free[0]
+    return x, choice, w, gate_up, down
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 1000, 4096])
+def test_moe_grouped_route_matches_the_loop_on_the_card(cuda_device, T):
+    """The grouped route (``torch._grouped_mm`` over the slots sorted by
+    expert, an empty group among them) against the plain loop on the card:
+    within one bf16 rounding step of the expert outputs (2^-7 of the
+    largest), with no host synchronization."""
+    from colbert_torch.ops import moe
+
+    x, choice, w, gate_up, down = _moe_case(cuda_device, T)
+    want = moe.experts_loop(x, choice, w, gate_up, down)
+    moe.experts_grouped(x, choice, w, gate_up, down)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = moe.experts_grouped(x, choice, w, gate_up, down)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 2 ** -7 * float(want.abs().max())
+
+
+def _moe_encoder(device, **kw):
+    """A small DeepSeek-V3 encoder (3 layers: dense, then two MoE layers of
+    16 experts, top-4, 2 shared; MLA 64/32/16/32) with bf16 matrices, full
+    doc batches of 16, bf16 activations."""
+    from colbert_torch.config import ColBERTConfig
+    from colbert_torch.models.colbert import init_colbert
+    from colbert_torch.models.deepseek_v3 import DeepseekV3Config
+    from colbert_torch.models.encoder import ColBERTEncoder
+    from colbert_torch.tokenization.wordpiece import WordPieceTokenizer
+    from colbert_torch.utils.testing import make_vocab
+
+    vocab = make_vocab(2000)
+    arch = DeepseekV3Config(vocab_size=len(vocab), hidden_size=256, intermediate_size=512,
+                            moe_intermediate_size=128, num_hidden_layers=3,
+                            num_attention_heads=4, num_key_value_heads=4, n_routed_experts=16,
+                            num_experts_per_tok=4, kv_lora_rank=64, qk_nope_head_dim=32,
+                            qk_rope_head_dim=16, v_head_dim=32, max_position_embeddings=512)
+    model = init_colbert(arch, 128, generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if not name.endswith("scale"):
+                p.data = p.data.to(torch.bfloat16)
+        for layer in model.bert.layers[1:]:
+            layer.mlp.router_bias.normal_(0, 0.02, generator=torch.Generator().manual_seed(4))
+    cfg = dict(dim=128, nbits=2, doc_maxlen=256, index_bsize=16, length_bucket=32,
+               kmeans_niters=2)
+    cfg.update(kw)
+    return ColBERTEncoder(model, WordPieceTokenizer(vocab), ColBERTConfig(**cfg), device=device)
+
+
+@pytest.mark.cuda
+def test_a_moe_doc_batch_replays_to_the_eager_result(cuda_device, monkeypatch):
+    """Full batches of 16 through the small DeepSeek-V3 encoder: the second
+    pass of each doc encode, every full batch a replay of a captured
+    program (the expert layer inside it), gives the same bytes as every
+    batch op by op; a replay under ``set_sync_debug_mode("error")``; the
+    captured program counts its MoE work on each replay."""
+    from colbert_torch.models import encoder as enc_mod
+    from colbert_torch.utils import tracing
+    from colbert_torch.utils.testing import synthetic_collection
+
+    enc = _moe_encoder(cuda_device)
+    passages = synthetic_collection(40, seed=7, words_per_doc=60)
+    cent, cutoffs = _codec_of(enc, passages, cuda_device, k=64)
+    _doc_encodes(enc, passages, cent, cutoffs)  # the keys' warm-ups and captures
+    with tracing.recording() as rec:
+        got = _doc_encodes(enc, passages, cent, cutoffs)
+    torch.cuda.synchronize()
+    c = rec.counters
+    assert "doc_captures" not in c and c["doc_replays"] == 3 * 2
+    assert c["moe_layer_calls"] == 2 * c["doc_batches"] == 2 * 3 * 3
+    assert c["moe_grouped_launches"] == 2 * c["moe_layer_calls"]
+    assert c["attn_mla_calls"] == 3 * c["doc_batches"]
+    ((_, ids, mask, keep), *_) = list(enc._doc_batches(passages))
+    step = enc._doc_step(compact=True)
+    with torch.no_grad():
+        want, _ = step(ids, mask, keep)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            again, _ = step(ids, mask, keep)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.equal(again, want)
+    monkeypatch.setattr(enc_mod, "MAX_GRAPH_TOKENS", 0)
+    eager = _doc_encodes(enc, passages, cent, cutoffs)
+    for name in got:
+        assert _bytes_of(got[name]) == _bytes_of(eager[name]), name
+
+
+@pytest.mark.cuda
+def test_a_moe_encoder_indexes_and_serves_captured_queries(cuda_device, tmp_path):
+    """The small DeepSeek-V3 encoder indexes 48 passages through
+    ``Indexer.index`` on the card and serves query batches through the
+    captured serving program (its query encode runs the expert layer):
+    the graphed ``search_batch``, warm-up then replays, equals the eager
+    entry up to ties at 1e-4."""
+    from colbert_torch.indexing.builder import Indexer
+    from colbert_torch.retrieval.searcher import Searcher
+    from colbert_torch.utils import tracing
+    from colbert_torch.utils.testing import synthetic_collection
+
+    enc = _moe_encoder(cuda_device)
+    passages = synthetic_collection(48, seed=8, words_per_doc=80)
+    path = str(tmp_path / "index")
+    Indexer(enc.config, encoder=enc, collection=passages, device=cuda_device).index(path)
+    s = Searcher(path, encoder=enc, config=enc.config, device=cuda_device)
+    queries = [" ".join(p.split()[:10]) for p in passages[:12]]
+    for _ in range(3):
+        with tracing.recording() as rec:
+            got = s.search_batch(queries, k=5)
+        _agree_up_to_ties(*got, *_eager(s, queries, k=5))
+    assert rec.counters["program_replays"] == 1
+    assert rec.counters["moe_grouped_launches"] == 2 * 2
+    stats = s.device_index.programs.stats()
+    assert stats["built"] == stats["held"] == 1 and stats["replays"] == 2
+
+
+@pytest.mark.cuda
+def test_expert_kernel_launches_match_the_counters(cuda_device, monkeypatch):
+    """Under the profiler, one doc batch op by op and one replayed launch
+    exactly ``moe_grouped_launches`` device operations that the benchmark's
+    ``moe.expert_roofline.build`` takes for grouped products, and the
+    counters count them: two per MoE layer and batch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark import registry
+    from colbert_torch.models import encoder as enc_mod
+    from colbert_torch.utils import tracing
+    from colbert_torch.utils.testing import synthetic_collection
+
+    is_expert = registry.metric("moe.expert_roofline.build").is_expert_product
+    enc = _moe_encoder(cuda_device)
+    ((_, ids, mask, keep),) = list(enc._doc_batches(synthetic_collection(16, seed=9,
+                                                                         words_per_doc=60)))
+    step = enc._doc_step(compact=True)
+
+    def profiled():
+        tracing.take()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(ids, mask, keep)
+            torch.cuda.synchronize()
+        names = [e.name() for e in prof.profiler.kineto_results.events()
+                 if e.device_type() != torch.autograd.DeviceType.CPU]
+        return tracing.take().counters, names
+
+    with torch.no_grad():
+        with monkeypatch.context() as m:
+            m.setattr(enc_mod, "MAX_GRAPH_TOKENS", 0)
+            eager = profiled()
+        step(ids, mask, keep)  # the key's warm-up and capture
+        replayed = profiled()
+    assert replayed[0]["doc_replays"] == 1 and "doc_replays" not in eager[0]
+    for c, names in (eager, replayed):
+        assert c["moe_grouped_launches"] == 2 * 2
+        assert sum(map(is_expert, names)) == c["moe_grouped_launches"], names
